@@ -1,14 +1,14 @@
 # Build/validate flow (reference analog: C11, the SDAccel Makefile tiers —
-# SURVEY.md SS2/SS4): sw_emu -> tests (CPU interpret), hw_emu -> lower-check
-# (offline Mosaic lowering), hw -> tpu_smoke + bench.
+# SURVEY.md SS2/SS4): sw_emu -> tests (CPU, Pallas interpreted),
+# hw -> chip_smoke + bench on an NVIDIA GPU.
 
-.PHONY: test oracle verify eval verify-families lower-check smoke bench sweep regress regress-full hw-v3 clean
+.PHONY: test oracle verify eval verify-families smoke smoke-4 bench sweep clean
 
 oracle:            ## build the native C++ golden oracle
 	python -c "from mobilenet_tpu import cpu_ref; print(cpu_ref.build(force=True))"
 
-test: oracle       ## sw_emu tier: full pytest suite on the CPU backend
-	python -m pytest tests/ -q
+test: oracle       ## sw_emu tier: the pytest suite on the CPU backend
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q -m 'not slow'
 
 verify:            ## per-layer golden gates (fp32 tolerance + int8 exact)
 	python -m mobilenet_tpu.cli --backend cpu verify --alpha 0.25 --res 128
@@ -18,41 +18,23 @@ eval:              ## end-to-end top-1 agreement gate vs the golden CPU model
 	python -m mobilenet_tpu.cli --backend cpu eval --alpha 0.25 --res 128 --n 16
 	python -m mobilenet_tpu.cli --backend cpu eval --alpha 0.25 --res 128 --n 16 --int8
 
-verify-families:   ## V2/V3 golden + int8-exact + routing-equivalence gates (CPU)
+verify-families:   ## V2/V3 golden + int8-exact gates (CPU)
 	python -m mobilenet_tpu.cli --backend cpu verify --model v2 --alpha 1.0 --res 96
 	python -m mobilenet_tpu.cli --backend cpu verify --model v2 --alpha 1.0 --res 96 --int8
 	python -m mobilenet_tpu.cli --backend cpu verify --model v3small --alpha 1.0 --res 96
 	python -m mobilenet_tpu.cli --backend cpu verify --model v3small --alpha 1.0 --res 96 --int8
-	python -m mobilenet_tpu.cli --backend cpu verify --model v3small --alpha 1.0 --res 96 --routing fused
 
-lower-check:       ## hw_emu tier: lower every shipping Pallas route through Mosaic, no chip needed
-	python tools/lower_check.py
+smoke:             ## hw tier: the end-to-end check on one NVIDIA GPU
+	python chip_smoke.py
 
-smoke:             ## hw tier: all Pallas kernel families on the real TPU
-	python tools/tpu_smoke.py
+smoke-4:           ## hw tier: DP serving, channel-TP and GPipe on four GPUs
+	python chip_smoke.py --cards 4
 
-hw-v3:             ## hw tier: the V3 on-chip campaign (smoke -> gates -> races)
-	bash tools/hw_v3_campaign.sh
-
-bench:             ## the driver contract metric (one JSON line, real TPU)
+bench:             ## throughput benchmark (one JSON line, GPU only)
 	python bench.py
 
-sweep:             ## full alpha x resolution grid (real TPU, slow)
-	python -m mobilenet_tpu.cli sweep --steps 40
-
-regress:           ## fresh measurement vs recorded sweep artifacts (real TPU)
-	python tools/regress.py --configs 1.0:224
-	python tools/regress.py --configs 1.0:224 --int8
-
-regress-full:      ## every recorded bf16 + int8 sweep row, variance-aware tolerances (real TPU, slow)
-	python tools/regress.py --configs all
-	python tools/regress.py --configs all --int8
-	python tools/regress.py --model v2 --configs all
-	python tools/regress.py --model v2 --configs all --int8
-	python tools/regress.py --model v3 --configs all
-	python tools/regress.py --model v3 --configs all --int8
-	python tools/regress.py --model v3small --configs all
-	python tools/regress.py --model v3small --configs all --int8
+sweep:             ## full alpha x resolution grid (GPU, slow)
+	python -m mobilenet_tpu.cli --backend gpu sweep --steps 40
 
 clean:
 	rm -f mobilenet_tpu/cpu_ref/libcpuref.so mobilenet_tpu/native_io/libnativeio.so

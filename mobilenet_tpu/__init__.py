@@ -1,11 +1,12 @@
-"""mobilenet_tpu — a TPU-native MobileNet-V1 inference framework.
+"""mobilenet_tpu — a MobileNet-V1 inference framework in JAX.
 
 A ground-up rebuild of the capabilities of
 anerisheth19/CNN-MobileNet-V1-implementation-on-AWS-FPGA-using-OpenCL
-(see SURVEY.md for the component-by-component mapping), designed TPU-first:
+(see SURVEY.md for the component-by-component mapping), for NVIDIA GPUs:
   - all 28 layers as one jitted XLA program (no per-layer host dispatch)
-  - Pallas channel-tiled depthwise 3x3 kernel; pointwise 1x1 on the MXU with
-    fused BatchNorm+ReLU epilogues
+  - depthwise 3x3 as XLA grouped convs, pointwise 1x1 as matmuls with fused
+    BatchNorm+ReLU epilogues; a fused dw+pw Pallas kernel (Triton route) for
+    the large-image V1 blocks on the GPU
   - INT8 fixed-point path with per-layer requantization
   - batch-256 throughput mode and 64-stream micro-batching server
   - C++ `cpu_ref` golden oracle with a NumPy twin for per-layer verification

@@ -3,8 +3,8 @@
 Reference analog: C9 "Weight export / loader" (SURVEY.md SS2) — offline export of
 pretrained TF MobileNet-V1 weights into flat files + host-side fread. Here the
 on-disk format is a documented .npz (name -> array, NHWC/HWIO layouts), loaded
-into a JAX pytree and placed in HBM once via jax.device_put (the TPU equivalent
-of clCreateBuffer + clEnqueueWriteBuffer(weights), SURVEY.md SS1 L3).
+into a JAX pytree and placed in device memory once via jax.device_put (the
+equivalent of clCreateBuffer + clEnqueueWriteBuffer(weights), SURVEY.md SS1 L3).
 
 No pretrained weights exist in this environment and there is no network
 (SURVEY.md SS7 stage 1), so `init_params` ships a seeded-random "reference weight
@@ -88,7 +88,7 @@ def fold_bn(params: Params, eps: float = 1e-3) -> Params:
 
     The conv weight's output-channel axis absorbs s; b becomes the fused bias.
     This mirrors the reference's pre-folded BN option (SURVEY.md SS1 L1) and is
-    what makes the pw conv a pure MXU matmul + bias + ReLU (BASELINE.json:5).
+    what makes the pw conv a pure matmul + bias + ReLU (BASELINE.json:5).
     Folding is done in float64 then cast, so the folded path and oracles agree.
     """
 

@@ -1,8 +1,8 @@
-"""Model configuration for the TPU-native MobileNet-V1 stack.
+"""Model configuration for the MobileNet-V1 stack.
 
 The reference (anerisheth19/CNN-MobileNet-V1-implementation-on-AWS-FPGA-using-
 OpenCL) hard-codes layer shapes as compile-time constants because HLS bitstreams
-require static shapes (SURVEY.md SS5 "Config / flag system"). The TPU-native
+require static shapes (SURVEY.md SS5 "Config / flag system"). The JAX
 equivalent is a frozen dataclass: each (alpha, resolution, batch, dtype) tuple is
 one jit cache entry, mirroring one FPGA bitstream.
 
@@ -51,7 +51,7 @@ class ModelConfig:
     """Static description of one MobileNet-V1 variant.
 
     Frozen + hashable so it can be a jit static argument. One instance is the
-    TPU analog of one compiled FPGA bitstream (SURVEY.md SS5).
+    analog of one compiled FPGA bitstream (SURVEY.md SS5).
     """
 
     alpha: float = 1.0

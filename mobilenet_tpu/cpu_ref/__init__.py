@@ -41,7 +41,15 @@ def build(force: bool = False) -> str:
         "-ffp-contract=off",  # no FMA: bit-match the NumPy twin
         _SRC, "-o", _LIB,
     ]
-    subprocess.run(cmd, check=True, capture_output=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError:
+        raise RuntimeError(
+            "cpu_ref build failed: g++ not found (the C++17 oracle needs it; "
+            "the NumPy oracle, --oracle numpy, does not)") from None
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"cpu_ref build failed ({' '.join(cmd)}):\n{proc.stderr}")
     return _LIB
 
 

@@ -16,68 +16,9 @@ from typing import Any, Dict, Optional
 import jax
 import jax.numpy as jnp
 
+from .. import platform
 from ..config import ModelConfig
 from ..ops import conv as ops
-
-# Per-block depthwise/pointwise execution backends:
-#   "xla"    — XLA grouped conv + XLA matmul (always available, differentiable)
-#   "pallas" — Pallas channel-tiled dw kernel + XLA matmul (SURVEY.md SS7 st.3)
-#   "fused"  — fused dw+pw Pallas block (dw result never leaves VMEM)
-DW_BACKENDS = ("xla", "pallas", "fused")
-
-# Collapse eligible fused runs (the 14^2 stretch) into the systolic chain
-# kernel at BATCH 1, where the forward is launch-gap-dominated: measured on
-# v5e at 1.0-224 the chain is ~5% ahead (0.1138 vs 0.1193 ms medians over
-# 11 interleaved RTT-cancelled rounds, wins 9/11, bit-identical probs —
-# tools/ab_chain_b1.py), ~14% ahead at 0.75-128 (0.0498 vs 0.0579, 5/5
-# rounds) and a wash at 0.25-128 (0.0456 vs 0.0463) — wins or ties at
-# every measured config (benchmarks/hw_gates_v5e.md). At batch >= 2 the
-# per-block pipeline already overlaps the stretch's HBM traffic (measured
-# wash at 256, docs/design.md SS5), so the chain stays off there unless
-# CHAIN_SYSTOLIC_F forces it.
-CHAIN_AT_BATCH1 = True
-
-# Fused pool+fc head kernel (ops/pallas_head.py) on non-xla routings:
-# the head stretch is launch-overhead-bound (2026-08-19 attribution);
-# A/B: tools/ab_head.py.
-FUSED_HEAD = True
-
-
-def _routing(config: ModelConfig, use_pallas_dw, dw_backend, batch: int):
-    """Resolve the per-block backend list (len == 13).
-
-    "auto": measured crossover on v5e at 1.0-224
-    (benchmarks/routing_crossover_v5e.jsonl, round 3): fused wins every
-    batch >= 8 (15.7k vs 12.4k xla img/s at batch 8, 29.4k vs 7.2k at 128);
-    batches 2-4 are a statistical wash with mixed slightly ahead (10.6k vs
-    10.4k fused at 4); at batch 1 MIXED wins decisively — the packed 112²
-    kernels lose their grid pipelining with one whole-image tile
-    (tools/latency_attr.py) while the dense fused blocks beat XLA from
-    block 2 on: 0.117 ms/forward vs 0.164 all-fused and 0.166 all-xla
-    (RTT-cancelled differenced chains).
-
-    The batch-1 winner is CONFIG-DEPENDENT off the flagship (measured rows
-    in routing_crossover_v5e.jsonl): fused wins 0.75-128 (0.0569 vs 0.0598
-    mixed), mixed wins 1.0-192 (0.097), ALL-XLA wins 0.5-224 (0.0897 vs
-    0.0971 mixed) — spreads <= 8%, well under the ~30 ms transport RTT any
-    real request pays. "auto" keeps the flagship-measured rule; use
-    `cli autotune --batch 1` (runtime.autotune) to specialize a deployment
-    to its exact config, which reproduces these rows.
-    """
-    n = len(config.block_strides)
-    if dw_backend is None:
-        dw_backend = "pallas" if use_pallas_dw else "xla"
-    if dw_backend == "auto":
-        dw_backend = "fused" if batch >= 8 else "mixed"
-    if dw_backend == "mixed":
-        # xla for the two 112-squared blocks (whose packed kernels lose grid
-        # pipelining at one whole-image tile), fused Pallas from block 2 on.
-        return ("xla",) * 2 + ("fused",) * (n - 2)
-    if isinstance(dw_backend, str):
-        assert dw_backend in DW_BACKENDS, dw_backend
-        return (dw_backend,) * n
-    assert len(dw_backend) == n, dw_backend
-    return tuple(dw_backend)
 
 
 def forward(
@@ -85,10 +26,7 @@ def forward(
     x: jax.Array,
     config: ModelConfig,
     *,
-    use_pallas_dw: bool = False,
-    dw_backend=None,
     collect: bool = False,
-    num_blocks: Optional[int] = None,
 ) -> Any:
     """Run the 28-layer network on a folded-BN params pytree.
 
@@ -96,46 +34,20 @@ def forward(
       params: folded pytree from checkpoints.io.fold_bn (w/b per conv layer).
       x: (N, H, W, 3) preprocessed images, NHWC, in [-1, 1].
       config: static model config (jit static arg).
-      use_pallas_dw: legacy toggle — route all dw layers through the Pallas
-        channel-tiled kernel instead of XLA grouped conv.
-      dw_backend: a name from DW_BACKENDS (e.g. measured for the current
-        device via runtime.autotune.autotune_backend), "auto" for the
-        measured v5e defaults, or a per-block tuple of names.
       collect: also return every post-activation tensor, keyed by layer name —
         the per-layer oracle tap (reference analog: per-layer clEnqueueReadBuffer
         in verify mode, SURVEY.md SS3.2).
-      num_blocks: run only conv1 + the first num_blocks separable blocks and
-        return that activation (no pool/fc) — the prefix entry used by
-        tools/prefix_attr.py's differenced segment attribution.
 
     Returns:
       logits (N, num_classes), or (logits, {layer_name: activation}) if collect.
     """
     acts: Dict[str, jax.Array] = {}
     relu6 = config.relu6
-    routing = _routing(config, use_pallas_dw, dw_backend, int(x.shape[0]))
 
     y = ops.conv2d_same(x, params["conv1"]["w"], 2, bias=params["conv1"]["b"], relu6=relu6)
     if collect:
         acts["conv1"] = y
-    y = _run_blocks(params, y, config, routing, relu6, acts if collect else None,
-                    stop=num_blocks)
-    if num_blocks is not None:  # truncated prefix entry: blocks only, no head
-        return y
-
-    if FUSED_HEAD and not collect and routing[-1] != "xla":
-        from ..ops.pallas_head import fused_head, head_fits  # noqa: PLC0415
-
-        if head_fits(int(y.shape[0]), int(y.shape[1]), int(y.shape[2]),
-                     int(y.shape[3]), None,
-                     [(params["fc"]["w"], params["fc"]["b"], "linear")],
-                     jnp.dtype(y.dtype).itemsize):
-            # pool + fc in ONE kernel (ops/pallas_head.py): the head
-            # stretch is launch-overhead-bound, not compute-bound
-            # (2026-08-19 attribution: ~1.2 ms vs a 0.03 ms floor).
-            return fused_head(
-                y, None,
-                [(params["fc"]["w"], params["fc"]["b"], "linear")])
+    y = _run_blocks(params, y, config, relu6, acts if collect else None)
     pooled = ops.global_avg_pool(y)
     if collect:
         acts["pool"] = pooled
@@ -146,245 +58,48 @@ def forward(
     return logits
 
 
-def _chain_runs(params, config, routing, y_shape, itemsize,
-                start: int = 0, min_run: int = 3):
-    """Maximal runs of >= min_run consecutive fused stride-1 C->C dense
-    blocks (the 14^2 stretch) eligible for the systolic chain kernel.
-    `y_shape` is the activation shape ENTERING block `start`; spatial sizes
-    for later blocks follow from the intervening strides, so eligibility can
-    include the kernel's VMEM base-case check (pallas_chain_systolic.
-    chain_fits — an oversized window would crash the device, CLAUDE.md).
-    Returns {start_index: run_length}."""
-    from ..ops.pallas_chain_systolic import chain_fits  # noqa: PLC0415
+def separable_block(blk, y, stride: int, relu6: bool) -> jax.Array:
+    """One dw3x3 -> pw1x1 block: the fused Hopper kernel where the platform
+    module says it serves (ops/block_triton.py), XLA's grouped conv and
+    matmul otherwise."""
+    if platform.block_kernel_serves(int(y.shape[1]), y.dtype):
+        from ..ops.block_triton import separable_block as kernel  # noqa: PLC0415
 
-    runs = {}
-    i, n = start, len(config.block_strides)
-    spatial = int(y_shape[1])  # input spatial side at block `start`
-    while i < n:
-        blk = params["blocks"][i]
-        cin, cout = blk["pw"]["w"].shape
-        # TF-SAME ceil division — the kernels' convention; floor would
-        # understate hw at odd spatial sizes and let chain_fits approve
-        # a chain the kernel's own VMEM base-case check then rejects
-        hw = -(-spatial // config.block_strides[i])  # output side of block i
-        spatial = hw
-        ok = (routing[i] == "fused" and config.block_strides[i] == 1
-              and cin == cout and cin >= 128)
-        if not ok:
-            i += 1
-            continue
-        j = i + 1
-        while j < n and routing[j] == "fused" and config.block_strides[j] == 1 \
-                and params["blocks"][j]["pw"]["w"].shape == (cin, cout):
-            j += 1
-        if j - i >= min_run and chain_fits(hw, hw, int(cin), j - i, itemsize):
-            runs[i] = j - i
-        i = j
-    return runs
+        return kernel(y, blk["dw"]["w"], blk["dw"]["b"], blk["pw"]["w"],
+                      blk["pw"]["b"], stride, relu6)
+    y = ops.depthwise_conv_xla(y, blk["dw"]["w"], stride,
+                               bias=blk["dw"]["b"], relu6=relu6)
+    return ops.pointwise_conv(y, blk["pw"]["w"], bias=blk["pw"]["b"],
+                              relu6=relu6)
 
 
-def _run_blocks(params, y, config, routing, relu6, acts=None, start: int = 0,
+def _run_blocks(params, y, config, relu6, acts=None, start: int = 0,
                 stop: Optional[int] = None):
-    """The 13 dw/pw blocks, from block `start`, per-block backend routing."""
-    collect = acts is not None
-    from ..ops import pallas_chain_systolic as pcs  # noqa: PLC0415
-
-    chain_on = pcs.CHAIN_SYSTOLIC_F or (CHAIN_AT_BATCH1
-                                        and int(y.shape[0]) == 1)
-    chain_runs = (
-        _chain_runs(params, config, routing, y.shape,
-                    jnp.dtype(y.dtype).itemsize, start=start)
-        if chain_on and not collect and stop is None else {}
-    )
-    skip_until = start
-    for i, (blk, stride) in enumerate(zip(params["blocks"], config.block_strides)):
-        if i < start or i < skip_until:
+    """The 13 dw/pw blocks [start, stop). `acts` (verify mode) collects
+    every dw and pw output, so those blocks run unfused on XLA."""
+    stop = len(config.block_strides) if stop is None else stop
+    for i in range(start, stop):
+        blk, stride = params["blocks"][i], config.block_strides[i]
+        if acts is None:
+            y = separable_block(blk, y, stride, relu6)
             continue
-        if stop is not None and i >= stop:
-            break
-        if i in chain_runs:
-            run = chain_runs[i]
-            blks = params["blocks"][i : i + run]
-            y = pcs.chain_systolic(
-                y,
-                jnp.stack([b["dw"]["w"].reshape(3, 3, -1) for b in blks]),
-                jnp.stack([b["dw"]["b"] for b in blks]),
-                jnp.stack([b["pw"]["w"] for b in blks]),
-                jnp.stack([b["pw"]["b"] for b in blks]),
-                relu6,
-            )
-            skip_until = i + run
-            continue
-        backend = routing[i]
-        if backend == "fused" and not collect:
-            cin = y.shape[-1]
-            cout = blk["pw"]["w"].shape[-1]
-            if (
-                stride == 1 and cin < 128 and 128 % cin == 0
-                and (y.shape[2] * cin) % 128 == 0 and (128 // cin) * cout % 128 == 0
-            ):
-                # narrow-channel layer: lane-packed variant (full occupancy)
-                from ..ops import pallas_block_packed_mxu as pbm  # noqa: PLC0415
-                from ..ops.pallas_block_packed import (  # noqa: PLC0415
-                    pack, separable_block_packed, unpack,
-                )
-
-                if pbm.DW_MXU_S1_F:
-                    yp = pbm.separable_block_packed_mxu(
-                        pack(y, cin), blk["dw"]["w"], blk["dw"]["b"],
-                        blk["pw"]["w"], blk["pw"]["b"], cin, cout, 1, relu6,
-                    )
-                else:
-                    yp = separable_block_packed(
-                        pack(y, cin), blk["dw"]["w"], blk["dw"]["b"],
-                        blk["pw"]["w"], blk["pw"]["b"], cin, cout, relu6,
-                    )
-                y = unpack(yp, cout)
-            elif (
-                stride == 2 and cin < 128 and 128 % cin == 0
-                and (128 // cin) % 2 == 0
-                and ((128 // cin) // 2) * cout % 128 == 0
-                and y.shape[1] % 2 == 0 and (y.shape[2] * cin) % 128 == 0
-            ):
-                # packed stride-2: the s2 stencil as 3 packed taps (one
-                # identity + two lane rolls); odd-pixel lanes dropped by the
-                # kron-selection pointwise weights
-                from ..ops import pallas_block_packed_mxu as pbm  # noqa: PLC0415
-                from ..ops.pallas_block_packed import (  # noqa: PLC0415
-                    pack, separable_block_packed_s2, unpack,
-                )
-
-                if pbm.DW_MXU_S2_F:
-                    yp = pbm.separable_block_packed_mxu(
-                        pack(y, cin), blk["dw"]["w"], blk["dw"]["b"],
-                        blk["pw"]["w"], blk["pw"]["b"], cin, cout, 2, relu6,
-                    )
-                else:
-                    yp = separable_block_packed_s2(
-                        pack(y, cin), blk["dw"]["w"], blk["dw"]["b"],
-                        blk["pw"]["w"], blk["pw"]["b"], cin, cout, relu6,
-                    )
-                y = unpack(yp, cout)
-            else:
-                from ..ops.pallas_block import separable_block_pallas  # noqa: PLC0415
-
-                y = separable_block_pallas(
-                    y, blk["dw"]["w"], blk["dw"]["b"], blk["pw"]["w"],
-                    blk["pw"]["b"], stride, relu6,
-                )
-            continue
-        if backend == "pallas" or (backend == "fused" and collect):
-            from ..ops.pallas_dw import depthwise_conv_pallas  # noqa: PLC0415
-
-            y = depthwise_conv_pallas(y, blk["dw"]["w"], stride,
-                                      bias=blk["dw"]["b"], relu6=relu6)
-        else:
-            y = ops.depthwise_conv_xla(y, blk["dw"]["w"], stride,
-                                       bias=blk["dw"]["b"], relu6=relu6)
-        if collect:
-            acts[f"block{i:02d}_dw"] = y
+        y = ops.depthwise_conv_xla(y, blk["dw"]["w"], stride,
+                                   bias=blk["dw"]["b"], relu6=relu6)
+        acts[f"block{i:02d}_dw"] = y
         y = ops.pointwise_conv(y, blk["pw"]["w"], bias=blk["pw"]["b"], relu6=relu6)
-        if collect:
-            acts[f"block{i:02d}_pw"] = y
+        acts[f"block{i:02d}_pw"] = y
     return y
 
 
-def _stem_fusible(params, config: ModelConfig, x_shape, routing, dtype) -> bool:
-    """True when the normalize+conv1+block0 mega-kernel applies
-    (ops.pallas_stem_b0: C1 == 32, whole lane rows, block 0 stride 1).
-
-    The kernel runs whole-image tiles; measured on v5e: bf16 fits the 16M
-    scoped-VMEM limit at every resolution up to 224, but fp32 OOMs at 224
-    (22.9M by the byte model) — fp32 fuses only up to 160 (model: 11.7M)."""
-    h, w = int(x_shape[1]), int(x_shape[2])
-    c1 = int(params["conv1"]["w"].shape[3])
-    cout = int(params["blocks"][0]["pw"]["w"].shape[1])
-    if jnp.dtype(dtype).itemsize > 2 and h > 160:
-        return False
-    return (
-        routing[0] == "fused"
-        and config.block_strides[0] == 1
-        and c1 == 32
-        and h % 2 == 0 and w % 2 == 0
-        and (w // 2) % 8 == 0
-        and (8 * cout) % 128 == 0
-    )
-
-
-def forward_u8(
-    params: Dict[str, Any],
-    images_u8: jax.Array,
-    config: ModelConfig,
-    *,
-    dtype=jnp.float32,
-    use_pallas_dw: bool = False,
-    dw_backend=None,
-    fuse_stem: bool = False,
-) -> jax.Array:
-    """uint8 NHWC at model resolution -> logits.
-
-    With fuse_stem=True (and fused routing + compatible shapes), normalize +
-    conv1 + block-0 dw/pw run as ONE Pallas mega-kernel with zero intermediate
-    HBM traffic (ops.pallas_stem_b0); otherwise the XLA preprocess + standard
-    forward path runs. Logits match `forward(preprocess(x))` to kernel
-    tolerance (tests/test_pallas_stem_b0.py).
-
-    fuse_stem defaults OFF: measured on v5e at 1.0-224 bf16 batch-256 the
-    mega-kernel is ~10% slower end-to-end (20.6k vs 22.8k img/s, 5-round
-    interleaved medians) — the sequential normalize->stem->dw->pw chain inside
-    one whole-image kernel loses the cross-stage pipelining that separate
-    pallas calls get, the same effect measured for the multi-block chain
-    kernel (docs/design.md SS5)."""
+def predict_probs_u8(params, images_u8, config: ModelConfig, *,
+                     dtype=jnp.float32) -> jax.Array:
+    """uint8 NHWC images -> probabilities, preprocessing in the same program."""
     from ..ops import preprocess as prep  # noqa: PLC0415
 
-    routing = _routing(config, use_pallas_dw, dw_backend, int(images_u8.shape[0]))
-    if not (fuse_stem
-            and _stem_fusible(params, config, images_u8.shape, routing, dtype)):
-        x = prep.preprocess(images_u8, config.resolution, dtype)
-        return forward(params, x, config, use_pallas_dw=use_pallas_dw,
-                       dw_backend=dw_backend)
-
-    from ..ops.pallas_block_packed import unpack  # noqa: PLC0415
-    from ..ops.pallas_stem_b0 import stem_block0_fused  # noqa: PLC0415
-
-    blk0 = params["blocks"][0]
-    cout = int(blk0["pw"]["w"].shape[1])
-    yp = stem_block0_fused(
-        images_u8,
-        params["conv1"]["w"].astype(dtype), params["conv1"]["b"].astype(dtype),
-        blk0["dw"]["w"].astype(dtype), blk0["dw"]["b"].astype(dtype),
-        blk0["pw"]["w"].astype(dtype), blk0["pw"]["b"].astype(dtype),
-        cout, config.relu6,
-    )
-    y = unpack(yp, cout)
-    y = _run_blocks(params, y, config, routing, config.relu6, start=1)
-    pooled = ops.global_avg_pool(y)
-    return ops.fc(pooled, params["fc"]["w"], params["fc"]["b"])
+    x = prep.preprocess(images_u8, config.resolution, dtype)
+    return predict_probs(params, x, config)
 
 
-def predict_probs(params, x, config: ModelConfig, **kw) -> jax.Array:
+def predict_probs(params, x, config: ModelConfig) -> jax.Array:
     """logits -> softmax probabilities (host does only top-k; SURVEY.md SS3.4)."""
-    return jax.nn.softmax(forward(params, x, config, **kw).astype(jnp.float32), axis=-1)
-
-
-def predict_probs_u8(params, images_u8, config: ModelConfig, **kw) -> jax.Array:
-    """uint8 images -> softmax probabilities via the fused-stem path."""
-    return jax.nn.softmax(
-        forward_u8(params, images_u8, config, **kw).astype(jnp.float32), axis=-1
-    )
-
-
-def make_infer_fn(
-    params,
-    config: ModelConfig,
-    *,
-    use_pallas_dw: bool = False,
-    donate_input: bool = False,
-):
-    """Build the compiled inference entry point (one jit cache entry per
-    (config, batch-shape) pair — the TPU analog of one bitstream)."""
-
-    def infer(images: jax.Array) -> jax.Array:
-        return predict_probs(params, images, config, use_pallas_dw=use_pallas_dw)
-
-    return jax.jit(infer, donate_argnums=(0,) if donate_input else ())
+    return jax.nn.softmax(forward(params, x, config).astype(jnp.float32), axis=-1)

@@ -1,4 +1,4 @@
-"""MobileNet-V2: the second model family, built on the same TPU-native ops.
+"""MobileNet-V2: the second model family, built on the same ops.
 
 The reference implements MobileNet-V1 only; V2 (Sandler et al. 2018,
 inverted residuals + linear bottlenecks) demonstrates that the framework's
@@ -7,22 +7,9 @@ Layer schedule verified against keras applications/mobilenet_v2.py (the
 (t, c, n, s) table at :96-110, `_make_divisible` at :505-513) — the same
 citation style as config.py's V1 table.
 
-TPU mapping (reusing the measured V1 design, docs/design.md):
-
-  "xla" routing    -> expand 1x1 as MXU matmul with fused bias+ReLU6
-                      epilogue (ops.conv.pointwise_conv), XLA grouped dw
-                      conv, linear project matmul, XLA-fused residual add.
-                      Always-correct, differentiable — the oracle/verify/
-                      training route.
-  "fused" routing  -> the ENTIRE inverted-residual block as one Pallas
-                      kernel (ops.pallas_ir_block): expand on the MXU,
-                      dw stencil on the VPU, linear projection on the MXU,
-                      residual added in-kernel — the expanded tensor
-                      (t*Cin channels, the widest activation and the
-                      dominant HBM term of the unfused schedule) never
-                      exists in HBM. Blocks the kernel cannot take (t==1,
-                      or whole-image tile beyond the VMEM budget at high
-                      resolution) fall back to xla per block.
+Every block runs on XLA: expand 1x1 as a matmul with a fused bias+ReLU6
+epilogue (ops.conv.pointwise_conv), the grouped depthwise conv, a linear
+projection matmul, and the residual add.
 """
 
 from __future__ import annotations
@@ -115,120 +102,12 @@ class V2Config:
         return f"mobilenet_v2_{self.alpha:g}_{self.resolution}"
 
 
-# Trace-time knob for the packed-expand stride-2 route (run_blocks_v2):
-# True ships it; A/B tools flip it (tools/ab_b1_packed.py). V3 twin in
-# models/mobilenet_v3.py.
-PACKED_EXPAND_S2 = True
-# Single-kernel fused expand+dw-s2+prj route (ops/pallas_expand_s2; V3 twin
-# has the rationale + measured numbers). Unlike the two-stage route, its
-# eligibility does NOT need E | 128 — (R/2)*E lane alignment suffices, so
-# V2's standard E = 96α block 1 qualifies. A/B: tools/ab_b1_fused.py.
-FUSED_EXPAND_S2 = True
-# Output-width override (None = minimal lane-aligned Cout padding; 128 =
-# dense downstream geometry — the V3 twin's knob, measured there).
-FUSED_EXPAND_S2_PAD = None
-# Restrict the fused expand-s2 route to these block indices (None = every
-# eligible block) — A/B knob. MEASURED (tools/ab_b1_fused.py --model v2,
-# 1.0-224 batch 256 bf16, 2026-08-20, interleaved fenced rounds): b1-only
-# 13,988 img/s beats b1+b3 13,048 and wide-128 13,750 — fusing b3 pads
-# its cout 32->128, widening b4..b12's residual chain 4x, and the ripple
-# costs more than the fusion saves (two_stage 11,535). The ripple is a
-# CHANNEL effect, independent of resolution, so b3 is excluded explicitly
-# ({1} default) rather than left to the MIN_H gate below — which only
-# happens to exclude b3 at standard resolutions (H=56 < 96) and would
-# silently re-enable the measured-loss arm at res >= 384.
-FUSED_EXPAND_S2_BLOCKS = {1}
-# Minimum dw-input height for the fused route — the MEASURED resolution
-# crossover (same tool, every standard res, 2026-08-20, b1-fused vs
-# two_stage img/s): res 96 (H48) 62,283 vs 67,097 LOSE; 128 (H64) 50,029
-# vs 50,971 LOSE; 160 (H80) 27,914 vs 28,488 LOSE; 192 (H96) 22,156 vs
-# 17,153 WIN; 224 (H112) 13,988 vs 11,535 WIN. Below H=96 the two-stage
-# route's cross-kernel pipelining beats the fused kernel's HBM saving;
-# the int8 twin measured the SAME crossover (quant/v2.py).
-FUSED_EXPAND_S2_MIN_H = 96
-# Fused conv_last->pool->fc head kernel (ops/pallas_head.py) on fused
-# routings; A/B: tools/ab_head.py.
-FUSED_HEAD = True
-# Lane-packed stride-1 bottleneck route (ops/pallas_se_packed with
-# se_width=0 and act="relu6" — the kernel is act-generic and its SE
-# stage optional): V2's mid-network s1 blocks run the dense ir kernel
-# at <= 50% lane occupancy (b2: Cin 24 at 56²; b4/b5: 32 at 28²;
-# b7-b12: 64-96 at 14²). True = every eligible block; a collection =
-# those indices; False = off. RACED 2026-08-21 (tools/abx.py --model v2
-# bf16 batch-256, top-1 identical): all-eligible 17.968 vs dense 17.995
-# ms — a 0.15% wash, unlike V3-Small's +7% (V2's eligible set excludes
-# its 56² block b2 on VMEM fit, and its 14² blocks already run the dense
-# ir kernel at >= 50% occupancy vs Small's 31%). Ships OFF; the route
-# stays as the tested option (tests/test_v2_flows.py numerics gate).
-PACKED_S1 = False
-PACKED_S1_BN = None
-
-
-def _packed_s1_on(i: int) -> bool:
-    if PACKED_S1 is True or PACKED_S1 is False:
-        return bool(PACKED_S1)
-    return i in PACKED_S1
-
-
-def mixed_b1_routing_v2(config: V2Config) -> Tuple[str, ...]:
-    """The measured batch-1 MIXED tuple (see _routing_v2 docstring):
-    XLA for the two 112-sq-tier blocks, fused Pallas from block 2 on."""
-    n = len(config.block_defs)
-    return ("xla",) * 2 + ("fused",) * (n - 2)
-
-
-def _routing_v2(config: V2Config, dw_backend, batch: int) -> Tuple[str, ...]:
-    """Per-block backend list (len == 17). "xla" | "fused" | tuple.
-
-    "fused" routes a block through the fused inverted-residual Pallas
-    kernel (ops.pallas_ir_block): expand+dw+linear-project(+residual) in
-    one kernel, expanded tensor never in HBM. Its Mosaic-alignment design
-    (2D input/output, only the VMEM-internal expanded dim padded to 128)
-    is what made Pallas viable at V2's unaligned channel counts — the
-    earlier dw+prj-only route was rejected by Mosaic at every standard V2
-    width (`vector<8x7x7x960xbf16> -> vector<392x960xbf16>: unsupported
-    shape cast`, tools/ab_v2_routing.py). Blocks without an expansion conv
-    (t == 1) and blocks whose whole-image tile exceeds the VMEM budget
-    (ir_fits — e.g. the 112-squared block at high resolution) fall back to
-    xla; eligibility is static shape math, identical on every tier.
-
-    "auto": measured crossover on v5e at 1.0-224 bf16 (2026-08-17,
-    tools/ab_v2_routing.py interleaved races + the padded
-    latency_probe --model v2): fused wins every batch >= 2 (6,105 vs
-    5,643 img/s at batch 2; 9,478 vs 7,713 at 8; 12,737 vs 6,189 at 64).
-    At batch 1 the MIXED tuple wins (tools/ab_mixed_b1.py, 2026-08-19,
-    RTT-cancelled differenced chains on the shipped block0-padded tree):
-    mix2 0.1466 ms median vs all-xla 0.1694 / all-fused 0.2135, ahead in
-    all 4 interleaved rounds — XLA keeps the two 112-sq-tier blocks
-    (whose whole-image kernels lose grid pipelining at one image, V1's
-    measured pattern) and the fused kernels win the launch-gap-dominated
-    rest. A tail variant (xla for the three 7-sq blocks) measured 0.1496
-    — within noise of mix2, not shipped.
-    """
-    n = len(config.block_defs)
-    if dw_backend is None:  # plain-JAX default (the sw_emu/CPU tier)
-        dw_backend = "xla"
-    elif dw_backend == "auto":
-        dw_backend = "fused" if batch >= 2 else "mixed"
-    if dw_backend == "mixed":
-        return mixed_b1_routing_v2(config)
-    if isinstance(dw_backend, str):
-        assert dw_backend in ("xla", "fused"), dw_backend
-        routing = (dw_backend,) * n
-    else:
-        assert len(dw_backend) == n, dw_backend
-        routing = tuple(dw_backend)
-    return routing
-
-
 def forward_v2(
     params: Dict[str, Any],
     x: jax.Array,
     config: V2Config,
     *,
-    dw_backend=None,
     collect: bool = False,
-    num_blocks: Optional[int] = None,
 ) -> Any:
     """Run MobileNet-V2 on a folded-BN params pytree (checkpoints.v2).
 
@@ -239,36 +118,15 @@ def forward_v2(
     -layer oracle taps: conv1, block{i:02d}_exp/_dw/_prj (and _out where a
     residual applies), conv_last, pool, logits — the V2 twin of V1's
     load-bearing layer names (CLAUDE.md invariants).
-
-    num_blocks: run only conv1 + the first num_blocks inverted-residual
-    blocks and return that activation (no head) — the prefix entry for
-    tools/prefix_attr.py's differenced segment attribution.
     """
     acts: Dict[str, jax.Array] = {}
-    routing = _routing_v2(config, dw_backend, int(x.shape[0]))
 
     y = ops.conv2d_same(x, params["conv1"]["w"], 2,
                         bias=params["conv1"]["b"], relu6=True)
     if collect:
         acts["conv1"] = y
 
-    y = run_blocks_v2(params, y, config, routing,
-                      stop=num_blocks if num_blocks is not None else None,
-                      acts=acts if collect else None)
-    if num_blocks is not None:  # truncated prefix entry: blocks only, no head
-        return y
-
-    if FUSED_HEAD and not collect and routing[-1] == "fused":
-        from ..ops.pallas_head import fused_head, head_fits  # noqa: PLC0415
-
-        conv = (params["conv_last"]["w"], params["conv_last"]["b"], "relu6")
-        post = [(params["fc"]["w"], params["fc"]["b"], "linear")]
-        if head_fits(int(y.shape[0]), int(y.shape[1]), int(y.shape[2]),
-                     int(y.shape[3]), conv, post,
-                     jnp.dtype(y.dtype).itemsize):
-            # conv_last -> pool -> fc in ONE kernel (the V3 twin's
-            # rationale, models/mobilenet_v3.py).
-            return fused_head(y, conv, post)
+    y = run_blocks_v2(params, y, config, acts=acts if collect else None)
     y = ops.pointwise_conv(y, params["conv_last"]["w"],
                            bias=params["conv_last"]["b"], relu6=True)
     if collect:
@@ -283,201 +141,57 @@ def forward_v2(
     return logits
 
 
-def run_blocks_v2(params, y, config: V2Config, routing, *,
+def run_blocks_v2(params, y, config: V2Config, *,
                   start: int = 0, stop: Optional[int] = None,
                   acts: Optional[Dict[str, Any]] = None) -> jax.Array:
     """Run inverted-residual blocks [start, stop) on activation `y` —
     forward_v2's block loop, exposed for stage-partitioned runners
-    (parallel/pp.py) with identical routing/eligibility semantics."""
-    collect = acts is not None
-    from ..ops.pallas_ir_block import ir_fits  # noqa: PLC0415
-
+    (parallel/pp.py)."""
     stop = len(config.block_defs) if stop is None else stop
     for i in range(start, stop):
-        (t, cin, cout, stride), blk = (config.block_defs[i],
-                                       params["blocks"][i])
-        has_res = stride == 1 and cin == cout
-        # Shapes come from the ACTUAL params: the device tree may carry
-        # block 0's lane-divisor projection padding (checkpoints.padding.
-        # pad_block0_v2) — zero channels, logits exactly unchanged.
-        cin_a = int(y.shape[-1])
-        # A packed-expand s2 producer (below) widens the activation with
-        # zero channels; consumers pad their expand rows (and residual
-        # blocks their projection cols) with zeros in-graph to match —
-        # exact, compile-folded for closed-over params (the V3 twin).
-        if "exp" in blk and int(blk["exp"]["w"].shape[0]) < cin_a:
-            pad = cin_a - int(blk["exp"]["w"].shape[0])
-            blk = dict(blk, exp=dict(blk["exp"], w=jnp.pad(
-                blk["exp"]["w"], ((0, pad), (0, 0)))))
-        cout_a = int(blk["prj"]["w"].shape[1])
-        if has_res and cout_a < cin_a:
-            blk = dict(blk, prj=dict(
-                w=jnp.pad(blk["prj"]["w"], ((0, 0), (0, cin_a - cout_a))),
-                b=jnp.pad(blk["prj"]["b"], (0, cin_a - cout_a))))
-            cout_a = cin_a
-        e_a = int(blk["exp"]["w"].shape[1]) if "exp" in blk else cin_a
-        if routing[i] == "fused" and not collect and "exp" not in blk:
-            # t == 1 (block 0 only): its dw runs at Cin < 128 — lane-pack
-            # R = 128/Cin pixels per vector (the measured V1 fix for 112²
-            # narrow layers) when the shapes allow, with the packed
-            # kernel's LINEAR projection mode.
-            r = 128 // cin_a if (cin_a < 128 and 128 % cin_a == 0) else 0
-            if (stride == 1 and r and (int(y.shape[2]) * cin_a) % 128 == 0
-                    and (r * cout_a) % 128 == 0):
-                from ..ops.pallas_block_packed import (  # noqa: PLC0415
-                    pack, separable_block_packed, unpack)
-
-                yp = separable_block_packed(
-                    pack(y, cin_a), blk["dw"]["w"], blk["dw"]["b"],
-                    blk["prj"]["w"], blk["prj"]["b"], cin_a, cout_a, True,
-                    pw_epilogue=False)
-                y = unpack(yp, cout_a)
-                continue
-        narrow_s2 = (
-            PACKED_EXPAND_S2 and routing[i] == "fused" and not collect
-            and "exp" in blk and stride == 2
-            and cin_a < 128 and 128 % cin_a == 0
-            and (int(y.shape[2]) * cin_a) % 128 == 0
-            and int(y.shape[1]) % 2 == 0 and int(y.shape[2]) % 2 == 0)
-        if narrow_s2:
-            from ..ops.pallas_expand_s2 import (  # noqa: PLC0415
-                expand_block_packed_s2, expand_s2_eligible)
-
-            r2 = (128 // cin_a) // 2
-            cm = 128 // r2 if r2 else 0
-            cout_p = -(-cout_a // cm) * cm if cm else 0
-            e_p = -(-e_a // cm) * cm if cm else 0  # zero-pad E (exact)
-            if FUSED_EXPAND_S2_PAD and cm:
-                cout_p = max(cout_p, -(-FUSED_EXPAND_S2_PAD // cm) * cm)
-            if (FUSED_EXPAND_S2 and r2
-                    and (FUSED_EXPAND_S2_BLOCKS is None
-                         or i in FUSED_EXPAND_S2_BLOCKS)
-                    and int(y.shape[1]) >= FUSED_EXPAND_S2_MIN_H
-                    and expand_s2_eligible(cin_a, e_p, cout_p,
-                                           int(y.shape[2]))):
-                # Single fused kernel (module knob above; V3 twin carries
-                # the measured numbers). relu6 activations, linear
-                # projection — the V2 inverted-residual contract.
-                from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-
-                de = e_p - e_a
-                ew = jnp.pad(blk["exp"]["w"], ((0, 0), (0, de)))
-                eb = jnp.pad(blk["exp"]["b"], (0, de))
-                dww = jnp.pad(blk["dw"]["w"], ((0, 0), (0, 0), (0, 0),
-                                               (0, de)))
-                dwb = jnp.pad(blk["dw"]["b"], (0, de))
-                pw = jnp.pad(blk["prj"]["w"],
-                             ((0, de), (0, cout_p - cout_a)))
-                pb = jnp.pad(blk["prj"]["b"], (0, cout_p - cout_a))
-                out = expand_block_packed_s2(
-                    pack(y, cin_a), ew, eb, dww, dwb, pw, pb, cin_a, True)
-                y = out.reshape(out.shape[0], out.shape[1], -1, cout_p)
-                continue
-        if (narrow_s2
-                and e_a < 128 and 128 % e_a == 0 and (128 // e_a) % 2 == 0):
-            # Narrow-input stride-2 expand block: the V3 packed-expand
-            # twin (models/mobilenet_v3.py — full rationale + numbers
-            # there). Eligibility REQUIRES the packed stage-2 (E | 128,
-            # even ratio): V2's standard grid has E = 96α at block 1,
-            # and the dense-stage-2 fallback variant MEASURED A LOSS at
-            # 1.0-224 (11,458 -> 10,684 img/s, tools/ab_b1_packed.py
-            # --model v2, 2026-08-19), so standard V2 configs stay on the
-            # base fused route; the route fires only for imported
-            # checkpoints whose expand width divides 128.
-            from ..ops.pallas_block_packed import (  # noqa: PLC0415
-                pack, packed_expand, separable_block_packed_s2)
-
-            ye = packed_expand(y, blk["exp"]["w"], blk["exp"]["b"], "relu6")
-            pw = jnp.pad(blk["prj"]["w"], ((0, 0), (0, 128 - cout_a)))
-            pb = jnp.pad(blk["prj"]["b"], (0, 128 - cout_a))
-            y = separable_block_packed_s2(
-                pack(ye, e_a), blk["dw"]["w"], blk["dw"]["b"], pw, pb,
-                e_a, 128, True, pw_epilogue=False)
-            continue
-        if (_packed_s1_on(i) and routing[i] == "fused" and not collect
-                and "exp" in blk and stride == 1):
-            from ..ops.pallas_se_packed import (  # noqa: PLC0415
-                se_block_packed, se_packed_fits, se_packed_geometry)
-
-            geo = se_packed_geometry(cin_a, e_a, cout_a, int(y.shape[2]),
-                                     3, stride)
-            if (geo is not None
-                    and (not has_res or geo[2] == geo[0])
-                    and se_packed_fits(
-                        int(y.shape[0]), int(y.shape[1]), int(y.shape[2]),
-                        cin_a, e_a, cout_a, 3, stride,
-                        jnp.dtype(y.dtype).itemsize)):
-                # Sub-lane-width s1 inverted residual: lane-pack
-                # R = 128/Cp pixels per vector (the V3 call site's
-                # padding/unpack contract, models/mobilenet_v3.py).
-                from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-
-                cp, ep_, cout_p, r_ = geo
-                xin = y if cin_a == cp else jnp.pad(
-                    y, ((0, 0), (0, 0), (0, 0), (0, cp - cin_a)))
-                ew = (blk["exp"]["w"] if int(blk["exp"]["w"].shape[0]) == cp
-                      else jnp.pad(blk["exp"]["w"],
-                                   ((0, cp - cin_a), (0, 0))))
-                out = se_block_packed(
-                    pack(xin, cp), ew, blk["exp"]["b"],
-                    blk["dw"]["w"], blk["dw"]["b"],
-                    None, None, None, None,
-                    blk["prj"]["w"], blk["prj"]["b"],
-                    cp, 3, "relu6", has_res, 0, block_n=PACKED_S1_BN)
-                y = out.reshape(out.shape[0], out.shape[1], -1, cout_p)
-                continue
-        if (routing[i] == "fused" and not collect and ("exp" in blk or i == 0)
-                and ir_fits(int(y.shape[0]), int(y.shape[1]), int(y.shape[2]),
-                            cin_a, e_a, cout_a, stride,
-                            jnp.dtype(y.dtype).itemsize)):
-            # Whole inverted-residual block as ONE Pallas kernel: the
-            # expanded (t*Cin-wide) tensor never touches HBM. Block 0
-            # (t == 1, no expansion conv) rides the same kernel with an
-            # IDENTITY expansion: its input is conv1's post-ReLU6 output
-            # (values in [0, 6]), so the kernel's expansion ReLU6 is
-            # idempotent — exact, and only legal at i == 0.
-            from ..ops.pallas_ir_block import inverted_residual_pallas  # noqa: PLC0415
-
-            if "exp" in blk:
-                ew, eb = blk["exp"]["w"], blk["exp"]["b"]
-            else:
-                ew = jnp.eye(cin_a, dtype=y.dtype)
-                eb = jnp.zeros((cin_a,), y.dtype)
-            y = inverted_residual_pallas(
-                y, ew, eb, blk["dw"]["w"], blk["dw"]["b"],
-                blk["prj"]["w"], blk["prj"]["b"], stride, has_res, True)
-            continue
-        z = y
-        if "exp" in blk:  # t == 1 blocks have no expansion conv (keras :432)
-            z = ops.pointwise_conv(z, blk["exp"]["w"],
-                                   bias=blk["exp"]["b"], relu6=True)
-            if collect:
-                acts[f"block{i:02d}_exp"] = z
-        zd = ops.depthwise_conv_xla(z, blk["dw"]["w"], stride,
-                                    bias=blk["dw"]["b"], relu6=True)
-        if collect:
-            acts[f"block{i:02d}_dw"] = zd
-        out = ops.pointwise_conv(zd, blk["prj"]["w"],
-                                 bias=blk["prj"]["b"], relu6=None)
-        if collect:
-            acts[f"block{i:02d}_prj"] = out
-        if has_res:
-            out = out + y  # inverted residual (paper Fig. 3)
-            if collect:
-                acts[f"block{i:02d}_out"] = out
-        y = out
+        t, cin, cout, stride = config.block_defs[i]
+        y = inverted_residual(params["blocks"][i], y, stride,
+                              stride == 1 and cin == cout, acts,
+                              f"block{i:02d}")
     return y
 
 
-def predict_probs_v2(params, x, config: V2Config, **kw) -> jax.Array:
+def inverted_residual(blk, y, stride: int, has_res: bool,
+                      acts: Optional[Dict[str, Any]] = None,
+                      name: str = "") -> jax.Array:
+    """One bottleneck: expand 1x1 + ReLU6 (absent when t == 1, keras :432),
+    dw3x3 + ReLU6, linear 1x1 projection, residual add. `acts` collects the
+    taps {name}_exp/_dw/_prj/_out."""
+    def tap(kind, v):
+        if acts is not None:
+            acts[f"{name}_{kind}"] = v
+
+    z = y
+    if "exp" in blk:
+        z = ops.pointwise_conv(z, blk["exp"]["w"], bias=blk["exp"]["b"],
+                               relu6=True)
+        tap("exp", z)
+    z = ops.depthwise_conv_xla(z, blk["dw"]["w"], stride,
+                               bias=blk["dw"]["b"], relu6=True)
+    tap("dw", z)
+    out = ops.pointwise_conv(z, blk["prj"]["w"], bias=blk["prj"]["b"],
+                             relu6=None)
+    tap("prj", out)
+    if has_res:
+        out = out + y  # inverted residual (paper Fig. 3)
+        tap("out", out)
+    return out
+
+
+def predict_probs_v2(params, x, config: V2Config) -> jax.Array:
     return jax.nn.softmax(
-        forward_v2(params, x, config, **kw).astype(jnp.float32), axis=-1)
+        forward_v2(params, x, config).astype(jnp.float32), axis=-1)
 
 
 def predict_probs_v2_u8(params, images_u8, config: V2Config, *,
-                        dtype=jnp.float32, **kw) -> jax.Array:
+                        dtype=jnp.float32) -> jax.Array:
     """uint8 NHWC at any size -> probs (device resize/normalize, like V1)."""
     from ..ops import preprocess as prep  # noqa: PLC0415
 
     x = prep.preprocess(images_u8, config.resolution, dtype)
-    return predict_probs_v2(params, x, config, **kw)
+    return predict_probs_v2(params, x, config)

@@ -1,7 +1,7 @@
 """MobileNet-V3 (Large/Small/minimalistic): the third model family.
 
 The reference implements MobileNet-V1 only; V3 (Howard et al. 2019,
-arXiv:1905.02244) completes the MobileNet line on the same TPU-native ops:
+arXiv:1905.02244) completes the MobileNet line on the same ops:
 inverted residuals with squeeze-excite gates, mixed 3x3/5x5 depthwise
 kernels, and the hard-swish family of activations. Layer schedule verified
 against the on-disk keras source, the same citation style as V1/V2:
@@ -10,15 +10,9 @@ against the on-disk keras source, the same citation style as V1/V2:
 `_inverted_res_block` at :593-661, activations at :542-553, stem/head in
 MobileNetV3 at :313-372.
 
-TPU mapping: two routes. The xla route — expand/project as MXU matmuls
-with fused epilogues, dw via XLA grouped conv (k in {3,5}), SE as a
-(N,C)x(C,Cr) matmul pair around a global pool — is always-correct and the
-collect/train path. The FUSED route runs each bottleneck as one Pallas
-kernel (ops/pallas_ir_v3.py) with the SE gate computed in-kernel in
-whole-image mode (the full spatial extent is VMEM-resident there, so the
-mid-block global pool is an in-register reduction); SE blocks whose
-whole-image tile busts VMEM (V3-Small block 0 at 112-squared) fall back
-to XLA per block, statically (v3_fits).
+Every block runs on XLA: expand/project as matmuls with fused epilogues,
+the grouped depthwise conv (k in {3,5}), and SE as a (N,C)x(C,Cr) matmul
+pair around a global pool.
 
 Padding note: keras pads stride-2 dw convs explicitly (correct_pad +
 valid); at EVEN input sizes that equals TF 'SAME', and resolution % 32 == 0
@@ -172,9 +166,10 @@ class V3Config:
 def se_apply(z: jax.Array, se: Dict[str, Any]) -> jax.Array:
     """Squeeze-excite gate (keras _se_block :571-590): global pool ->
     1x1 conv(+bias)+relu -> 1x1 conv(+bias)+hard_sigmoid -> scale.
-    The two convs act on a (N, C) vector — MXU matmuls at the stack's
-    precision discipline (HIGHEST for fp32: TPU matmuls default to bf16
-    passes, which would blow the V3_TOL gate at K up to 960)."""
+    The two convs act on a (N, C) vector — matmuls at the stack's
+    precision discipline (HIGHEST for fp32: a default-precision f32 matmul
+    may run in TF32 or bf16 passes, which would blow the V3_TOL gate at K
+    up to 960)."""
     from ..ops.conv import _precision  # noqa: PLC0415
 
     prec = _precision(z)
@@ -190,208 +185,9 @@ def se_apply(z: jax.Array, se: Dict[str, Any]) -> jax.Array:
     return z * g[:, None, None, :]
 
 
-# Trace-time knob for the packed-expand stride-2 route (run_blocks_v3):
-# True ships it; A/B tools flip it to race the route against the rows-mode
-# fused kernel in one process (tools/ab_b1_packed.py).
-PACKED_EXPAND_S2 = True
-# Single-kernel expand+dw-s2+prj route (ops/pallas_expand_s2): removes the
-# expanded tensor's HBM round-trip AND the discarded odd-pixel dw FMAs of
-# the two-stage route — measured 3.23 vs 6.29 ms/batch-256 standalone at
-# the V3-Large block-1 geometry (tools/probe_b1_s2.py, 2026-08-19). False
-# falls back to the two-stage route; A/B: tools/ab_b1_fused.py.
-FUSED_EXPAND_S2 = True
-# Output width of the fused route: None -> minimal lane-aligned padding of
-# Cout (e.g. 24 -> 32 at Cin=16 — 4x less HBM on the block output);
-# 128 -> the two-stage route's full-128 padding (downstream narrow blocks
-# run their kernels at dense 128-lane geometry). The e2e winner is config-
-# dependent; tools/ab_b1_fused.py races both.
-FUSED_EXPAND_S2_PAD = None
-# Fused conv_last->pool->head->fc kernel (ops/pallas_head.py) on fused
-# routings; A/B: tools/ab_head.py.
-FUSED_HEAD = True
-# Lane-packed stride-1 SE bottleneck route (ops/pallas_se_packed.py):
-# R = 128/Cp pixels per vector for the sub-lane-width mid-network blocks
-# (V3-Large b2/b4/b5 at 224). True = every eligible block; False = off;
-# a collection of block indices = only those. MEASURED OUT 2026-08-19
-# (ships False): standalone each eligible block WINS (tools/
-# probe_se_packed_blocks.py: b2 2.005 -> 1.519, b4/b5 1.47/1.49 -> 1.37
-# ms at bn=1) but EVERY e2e subset LOSES (tools/ab_se_packed.py: dense
-# 15,802 img/s vs all 14,933 / all-bn1 15,180 / b2-only 15,448 / b4+b5
-# 15,423) — in-network the dense whole-image kernel runs ~0.5 ms/block
-# faster than its standalone time (grid pipelining across neighbors the
-# single-kernel probe can't see), and the packed route doesn't.
-# Record: benchmarks/roofline_v5e.md 2026-08-19.
-PACKED_SE = False
-# V3-SMALL ships the packed SE route ON (round 5, 2026-08-20): re-raced
-# under the round-4 regime (chain + carriage + the pooled-sum selection
-# dot fix this round ported from the s2 kernel), all eligible blocks
-# packed wins e2e 8.287 -> 7.710 ms/batch-256 (30,893 -> 33,202 img/s,
-# +7.5%, top-1 identical; p45-only loses, p4567 +3%, all-eligible best —
-# contiguous packed runs avoid the dense/packed layout boundaries that
-# sank the Large subsets). The Large measurement stands; the knob is
-# per-variant exactly like CHAIN_V3 / CHAIN_V3_SMALL.
-PACKED_SE_SMALL = True
-# block_n override for the packed SE kernel (None = kernel auto, which
-# picks bn=2 at 28² — measured 0.12 ms/block slower than bn=1 standalone).
-PACKED_SE_BN = None
-
-
-def _packed_se_on(i: int, variant: str = "large") -> bool:
-    knob = PACKED_SE_SMALL if variant == "small" else PACKED_SE
-    if knob is True or knob is False:
-        return bool(knob)
-    return i in knob
-
-
-# Chain megakernel (ops/pallas_chain_v3.py): maximal runs of consecutive
-# dense-route bottlenecks execute as ONE Pallas launch (activations never
-# leave VMEM between blocks; bit-identical to the per-block fused route).
-# Motivated by the 14² stretch measuring 0.77-1.23 ms/block against
-# ~0.02 ms of MXU work each. RACED AND MEASURED OUT on chip 2026-08-19
-# (tools/ab_chain_v3.py, V3-Large 1.0-224 batch 256 bf16): greedy 15,228
-# vs per-block 15,549 img/s; every explicit segmentation loses too
-# (6:12 15,389 / 12:14 15,137 / both 14,894 vs 15,534) and bn=2 loses
-# (15,355 vs 15,705). Cross-kernel grid pipelining beats in-kernel
-# serialization on this stack — the "launch overhead" the chain removes
-# is overlapped compute, not dead time (roofline_v5e.md 2026-08-19).
-# Values: True = greedy maximal runs; False = off;
-# a collection of (start, stop) index ranges = chain exactly those runs
-# (still VMEM-gated). PER-VARIANT: Large ships OFF (the 2026-08-19 race
-# above); SMALL ships GREEDY — raced 2026-08-20 (tools/ab_chain_v3.py
-# --model v3small, 1.0-224 batch 256 bf16, bit-identical logits):
-# greedy 8.835 vs per_block 9.181 ms/batch (28,976 vs 27,883 img/s);
-# explicit 3:11 ties greedy (8.845), sub-ranges lose. Small's 14²/7²
-# tail blocks are small enough that the launch boundaries the chain
-# removes cost more than its in-kernel serialization — the opposite of
-# Large's measured tradeoff.
-CHAIN_V3 = False          # Large + default
-CHAIN_V3_SMALL = True     # Small: greedy maximal runs
-# block_n override for the chain kernel (None = auto; raced per-config).
-CHAIN_V3_BN = None
-
-
-def _chain_ranges(i: int, variant: str = "large"):
-    """None (greedy from i), a stop index (explicit range starting at i),
-    or -1 (no chain starts at i) under the per-variant CHAIN knob."""
-    knob = CHAIN_V3_SMALL if variant == "small" else CHAIN_V3
-    if knob is True:
-        return None
-    if knob is False:
-        return -1
-    for s, e in knob:
-        if s == i:
-            return e
-    return -1
-
-
-def _try_chain_v3(params, y, config: "V3Config", routing, i: int,
-                  stop: int):
-    """Longest eligible chain of blocks starting at i: a list of
-    kernel-ready block dicts (widened like the per-block route widens)
-    plus the end index, or None. Blocks that own a better special route
-    (the packed narrow-s2 expand family, lane-packed SE when enabled)
-    terminate the run — measured winners keep their kernels."""
-    from ..ops.pallas_chain_v3 import chain_fits, chain_specs  # noqa: PLC0415
-
-    n, h0, w0 = int(y.shape[0]), int(y.shape[1]), int(y.shape[2])
-    itm = jnp.dtype(y.dtype).itemsize
-    c = int(y.shape[3])
-    hh, ww = h0, w0
-    run, shapes = [], []
-    for j in range(i, stop):
-        bd, blk = config.block_defs[j], params["blocks"][j]
-        if routing[j] != "fused" or not bd.has_expand:
-            break
-        if bd.kernel not in (3, 5) or bd.stride not in (1, 2):
-            break
-        if bd.stride == 2 and (hh % 2 or ww % 2):
-            break
-        if (PACKED_EXPAND_S2 and bd.kernel == 3 and bd.stride == 2
-                and not bd.se_mid and bd.act == "relu" and c < 128
-                and 128 % c == 0 and (ww * c) % 128 == 0):
-            break  # the packed expand-s2 route wins this geometry
-        if _packed_se_on(j, config.variant):
-            break
-        ew, eb = blk["exp"]["w"], blk["exp"]["b"]
-        if int(ew.shape[0]) < c:
-            ew = jnp.pad(ew, ((0, c - int(ew.shape[0])), (0, 0)))
-        pw, pb = blk["prj"]["w"], blk["prj"]["b"]
-        cout = int(pw.shape[1])
-        if bd.has_res and cout < c:
-            pw = jnp.pad(pw, ((0, 0), (0, c - cout)))
-            pb = jnp.pad(pb, (0, c - cout))
-            cout = c
-        if bd.has_res and cout != c:
-            break
-        entry = dict(exp_w=ew, exp_b=eb, dw_w=blk["dw"]["w"],
-                     dw_b=blk["dw"]["b"], prj_w=pw, prj_b=pb,
-                     k=bd.kernel, stride=bd.stride, act=bd.act,
-                     residual=bd.has_res)
-        se_w = 0
-        if bd.se_mid:
-            entry.update(se_w1=blk["se"]["w1"], se_b1=blk["se"]["b1"],
-                         se_w2=blk["se"]["w2"], se_b2=blk["se"]["b2"])
-            se_w = int(blk["se"]["w1"].shape[1])
-        run.append(entry)
-        shapes.append((c, int(ew.shape[1]), cout, bd.kernel, bd.stride,
-                       se_w))
-        c = cout
-        hh, ww = -(-hh // bd.stride), -(-ww // bd.stride)
-    while len(run) >= 2:
-        specs = chain_specs(shapes, h0, w0, itm)
-        if specs is not None and chain_fits(n, specs, itm):
-            return run, i + len(run)
-        run.pop()
-        shapes.pop()
-    return None
-
-
-def mixed_b1_routing(config: V3Config) -> Tuple[str, ...]:
-    """The measured batch-1 MIXED tuple: XLA for the high-resolution
-    head blocks (whose lane-packed/fused-expand kernels lose their grid
-    pipelining at one whole-image tile — V1's measured pattern), fused
-    Pallas for the launch-gap-dominated rest. Large keeps two XLA blocks
-    (the 112-sq tier); Small — whose stem lands at 56-sq already and
-    whose per-block work is ~4x smaller — keeps four (through the 28-sq
-    tier): tools/ab_mixed_b1.py 2026-08-19, 1.0-224 bf16 — Small
-    6-round decider medians mix4 0.0952 ms vs all-xla 0.1052 (5/6
-    head-to-head wins) vs mix2+chain 0.1072; first race had mix2 at
-    0.1081 LOSING to all-xla, so the Large tuple must not leak here."""
-    n = len(config.block_defs)
-    nx = 4 if config.variant == "small" else 2
-    return ("xla",) * nx + ("fused",) * (n - nx)
-
-
-def _routing_v3(config: V3Config, dw_backend, batch: int) -> Tuple[str, ...]:
-    """Per-block backend tuple, the V2 pattern (_routing_v2). None (the
-    plain-JAX/CPU tier) -> xla; "auto" -> fused at throughput batches,
-    the measured MIXED tuple at batch 1; per-block v3_fits still gates
-    each fused pick.
-
-    Batch-1 crossover measured on v5e (tools/ab_mixed_b1.py, 2026-08-19,
-    RTT-cancelled differenced chains, interleaved rounds): V3-Large
-    1.0-224 bf16 medians — mix2 0.1542 ms vs all-xla 0.1628 vs all-fused
-    0.215 (two independent runs, mix2 wins 6/8 head-to-head rounds); a
-    chain-megakernel arm on top of mix2 is a wash (0.1548). The earlier
-    all-or-nothing race (v3_fused_v5e.md: xla 0.164 vs fused 0.189) only
-    bracketed the mixed middle ground this tuple ships."""
-    n = len(config.block_defs)
-    if dw_backend is None:
-        dw_backend = "xla"
-    elif dw_backend == "auto":
-        dw_backend = "fused" if batch >= 2 else "mixed"
-    if dw_backend == "mixed":
-        return mixed_b1_routing(config)
-    if isinstance(dw_backend, str):
-        assert dw_backend in ("xla", "fused"), dw_backend
-        return (dw_backend,) * n
-    assert len(dw_backend) == n, dw_backend
-    return tuple(dw_backend)
-
-
 def head_matmul(pooled: jax.Array, head: Dict[str, Any],
                 act: str) -> jax.Array:
-    """Post-pool head conv_2 as a precision-disciplined MXU matmul
+    """Post-pool head conv_2 as a precision-disciplined matmul
     (keras :345-356; shared with the pp stage body)."""
     from ..ops.conv import _precision  # noqa: PLC0415
 
@@ -407,9 +203,7 @@ def forward_v3(
     x: jax.Array,
     config: V3Config,
     *,
-    dw_backend=None,
     collect: bool = False,
-    num_blocks: Optional[int] = None,
 ) -> Any:
     """Run MobileNet-V3 on a folded-BN params pytree (checkpoints.v3).
 
@@ -418,42 +212,16 @@ def forward_v3(
 
     collect=True returns (logits, {name: activation}) with per-layer oracle
     taps: conv1, block{i:02d}_exp/_dw/_se/_prj/_out, conv_last, pool, head,
-    logits. num_blocks: truncated prefix entry for segment attribution.
-
-    dw_backend: None/"xla" (always-correct, the collect/train path),
-    "fused" (one Pallas kernel per bottleneck, SE in-kernel — module
-    docstring), "mixed" (the measured batch-1 tuple, mixed_b1_routing),
-    "auto" (measured crossover), or a per-block tuple.
+    logits.
     """
     acts: Dict[str, jax.Array] = {}
-    routing = _routing_v3(config, dw_backend, int(x.shape[0]))
 
     y = ops.conv2d_same(x, params["conv1"]["w"], 2,
                         bias=params["conv1"]["b"], act=config.head_act)
     if collect:
         acts["conv1"] = y
 
-    y = run_blocks_v3(params, y, config, routing,
-                      stop=num_blocks if num_blocks is not None else None,
-                      acts=acts if collect else None)
-    if num_blocks is not None:
-        return y
-
-    if FUSED_HEAD and not collect and routing[-1] == "fused":
-        from ..ops.pallas_head import fused_head, head_fits  # noqa: PLC0415
-
-        conv = (params["conv_last"]["w"], params["conv_last"]["b"],
-                config.head_act)
-        post = [(params["head"]["w"], params["head"]["b"], config.head_act),
-                (params["fc"]["w"], params["fc"]["b"], "linear")]
-        if head_fits(int(y.shape[0]), int(y.shape[1]), int(y.shape[2]),
-                     int(y.shape[3]), conv, post,
-                     jnp.dtype(y.dtype).itemsize):
-            # conv_last -> pool -> head -> fc in ONE kernel
-            # (ops/pallas_head.py): the four-launch head stretch measured
-            # 1.43 ms/batch-256 against a 0.03 ms floor (2026-08-19
-            # attribution) — launch overhead, not compute.
-            return fused_head(y, conv, post)
+    y = run_blocks_v3(params, y, config, acts=acts if collect else None)
     y = ops.pointwise_conv(y, params["conv_last"]["w"],
                            bias=params["conv_last"]["b"], act=config.head_act)
     if collect:
@@ -462,7 +230,7 @@ def forward_v3(
     if collect:
         acts["pool"] = pooled
     # Head conv_2 runs AFTER the pool on a (N, C) vector (keras :345-356):
-    # 1x1 conv with bias (no BN) + activation — an MXU matmul at the
+    # 1x1 conv with bias (no BN) + activation — a matmul at the
     # stack's precision discipline (fp32 -> HIGHEST, like ops.conv.fc).
     h = head_matmul(pooled, params["head"], config.head_act)
     if collect:
@@ -474,263 +242,56 @@ def forward_v3(
     return logits
 
 
-def run_blocks_v3(params, y, config: V3Config, routing, *,
+def run_blocks_v3(params, y, config: V3Config, *,
                   start: int = 0, stop: Optional[int] = None,
                   acts: Optional[Dict[str, Any]] = None) -> jax.Array:
     """Run V3 bottlenecks [start, stop) on activation `y` — forward_v3's
-    block loop, exposed for stage-partitioned runners (parallel/pp.py)
-    with identical routing/eligibility semantics."""
-    collect = acts is not None
-    from ..ops.pallas_ir_v3 import v3_fits  # noqa: PLC0415
-
+    block loop, exposed for stage-partitioned runners (parallel/pp.py)."""
     stop = len(config.block_defs) if stop is None else stop
-    skip_until = start
     for i in range(start, stop):
-        if i < skip_until:
-            continue
-        if ((CHAIN_V3_SMALL if config.variant == "small" else CHAIN_V3)
-                and not collect):
-            rng_stop = _chain_ranges(i, config.variant)
-            chain = None if rng_stop == -1 else _try_chain_v3(
-                params, y, config, routing, i,
-                stop if rng_stop is None else min(rng_stop, stop))
-            if chain is not None:
-                from ..ops.pallas_chain_v3 import (  # noqa: PLC0415
-                    v3_chain_pallas)
-
-                run, skip_until = chain
-                y = v3_chain_pallas(y, run, block_n=CHAIN_V3_BN)
-                continue
-        bd, blk = config.block_defs[i], params["blocks"][i]
-        # Shapes from the ACTUAL params (the V2 discipline: a padded device
-        # tree must route by what it carries, not the nominal config).
-        cin_a = int(y.shape[-1])
-        # A packed-s2 producer (below) widens the activation with zero
-        # channels; consumers pad their expand rows (and, for residual
-        # blocks, their projection cols) with zeros IN-GRAPH to match —
-        # exact (zero rows/cols contribute exact f32 zeros), and folded at
-        # compile when the params are closed-over constants.
-        if "exp" in blk and int(blk["exp"]["w"].shape[0]) < cin_a:
-            pad = cin_a - int(blk["exp"]["w"].shape[0])
-            blk = dict(blk, exp=dict(blk["exp"], w=jnp.pad(
-                blk["exp"]["w"], ((0, pad), (0, 0)))))
-        cout_a = int(blk["prj"]["w"].shape[1])
-        if bd.has_res and cout_a < cin_a:
-            blk = dict(blk, prj=dict(
-                w=jnp.pad(blk["prj"]["w"], ((0, 0), (0, cin_a - cout_a))),
-                b=jnp.pad(blk["prj"]["b"], (0, cin_a - cout_a))))
-            cout_a = cin_a
-        e_a = int(blk["exp"]["w"].shape[1]) if "exp" in blk else cin_a
-        if (routing[i] == "fused" and not collect and not bd.has_expand
-                and bd.kernel == 3 and bd.stride == 1 and not bd.se_mid
-                and bd.act == "relu"):
-            # t == 1 relu block (V3-Large block 0): its dw runs at
-            # Cin < 128 — lane-pack R = 128/Cin pixels per vector, the
-            # measured V2 block-0 fix (11.4 -> 2.36 ms at 112²,
-            # benchmarks/v2_fused_v5e.md; the identity-expand rows route
-            # wastes 7/8 of every vector at ep=128). Linear projection
-            # mode + plain-ReLU dw epilogue map V3's block exactly;
-            # the residual joins as one XLA add (~0.2 ms of HBM at 112²).
-            r = 128 // cin_a if (cin_a < 128 and 128 % cin_a == 0) else 0
-            if (r and (int(y.shape[2]) * cin_a) % 128 == 0
-                    and (r * cout_a) % 128 == 0):
-                from ..ops.pallas_block_packed import (  # noqa: PLC0415
-                    pack, separable_block_packed, unpack)
-
-                xp = pack(y, cin_a)
-                yp = separable_block_packed(
-                    xp, blk["dw"]["w"], blk["dw"]["b"],
-                    blk["prj"]["w"], blk["prj"]["b"], cin_a, cout_a,
-                    False, pw_epilogue=False)
-                if bd.has_res:
-                    # residual IN THE PACKED LAYOUT (cin == cout, so the
-                    # packings coincide): an elementwise add on (..., 16)
-                    # arrays runs at 1/8 lane occupancy and measured
-                    # +8.4 ms/batch at 112²; the packed add is free
-                    # (28.3 vs 19.9 ms — benchmarks/v3_campaign_raw.log
-                    # block-0 A/B, 2026-08-18). pack() is a reshape, so
-                    # packed add == unpacked add exactly.
-                    yp = yp + xp
-                y = unpack(yp, cout_a)
-                continue
-        narrow_s2 = (
-            PACKED_EXPAND_S2 and routing[i] == "fused" and not collect
-            and bd.has_expand
-            and bd.kernel == 3 and bd.stride == 2 and not bd.se_mid
-            and bd.act == "relu" and cin_a < 128 and 128 % cin_a == 0
-            and (int(y.shape[2]) * cin_a) % 128 == 0
-            and int(y.shape[1]) % 2 == 0 and int(y.shape[2]) % 2 == 0)
-        if narrow_s2:
-            from ..ops.pallas_expand_s2 import (  # noqa: PLC0415
-                expand_block_packed_s2, expand_s2_eligible)
-
-            r2 = (128 // cin_a) // 2
-            # Minimal zero-padded Cout with lane-aligned packed output:
-            # (R/2)*Cout_p % 128 == 0 (cin | 128 => r2 is a power of two) —
-            # or the FUSED_EXPAND_S2_PAD override (128 restores the
-            # two-stage route's dense downstream geometry). The EXPANDED
-            # dim pads the same way (e_p: (R/2)*E_p % 128 == 0 — zero
-            # cols/taps/rows are exact), which makes V3-Small block 1
-            # (E=72 -> 96) eligible for the fused kernel.
-            cm = 128 // r2 if r2 else 0
-            cout_p = -(-cout_a // cm) * cm if cm else 0
-            e_p = -(-e_a // cm) * cm if cm else 0
-            if FUSED_EXPAND_S2_PAD and cm:
-                cout_p = max(cout_p,
-                             -(-FUSED_EXPAND_S2_PAD // cm) * cm)
-            if (FUSED_EXPAND_S2 and r2
-                    and expand_s2_eligible(cin_a, e_p, cout_p,
-                                           int(y.shape[2]))):
-                # Single fused kernel: expand (even pixels only, in VMEM),
-                # dw3x3 s2, linear projection — no HBM round-trip for the
-                # E-wide tensor, half the dw FMA width of the two-stage
-                # route (module docstring of ops/pallas_expand_s2).
-                # Measured 3.23 vs 6.29 ms/batch-256 standalone at the
-                # V3-Large block-1 geometry (tools/probe_b1_s2.py).
-                from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-
-                de = e_p - e_a
-                ew = jnp.pad(blk["exp"]["w"], ((0, 0), (0, de)))
-                eb = jnp.pad(blk["exp"]["b"], (0, de))
-                dww = jnp.pad(blk["dw"]["w"], ((0, 0), (0, 0), (0, 0),
-                                               (0, de)))
-                dwb = jnp.pad(blk["dw"]["b"], (0, de))
-                pw = jnp.pad(blk["prj"]["w"],
-                             ((0, de), (0, cout_p - cout_a)))
-                pb = jnp.pad(blk["prj"]["b"], (0, cout_p - cout_a))
-                out = expand_block_packed_s2(
-                    pack(y, cin_a), ew, eb, dww, dwb, pw, pb, cin_a, False)
-                y = out.reshape(out.shape[0], out.shape[1], -1, cout_p)
-                continue
-        if (narrow_s2
-                and e_a < 128 and 128 % e_a == 0 and (128 // e_a) % 2 == 0):
-            # Narrow-input stride-2 expand block (V3-Large block 1: Cin=16
-            # at 112², E=64): the rows-mode fused kernel reads (…, 16)
-            # element windows at 1/8 lane occupancy and runs its expand dot
-            # at K=16 — measured 9.2 ms of the 20.9 ms model (2026-08-19
-            # attribution). Two-stage packed route instead: the expansion
-            # as ONE full-width kron matmul in the packed layout
-            # (ops.pallas_block_packed.packed_expand), then the proven V1
-            # packed stride-2 dw+pw kernel with a linear projection
-            # epilogue. The projection pads to 128 output channels (zero
-            # cols — exact) so the packed kernel's lane-group contract
-            # holds; consumers pad their expand rows to match (above).
-            # Measured (tools/ab_b1_packed.py, batch 256, interleaved):
-            # V3-Large 1.0-224 12,668 -> 15,804 img/s, logits EXACTLY
-            # equal. Eligibility REQUIRES the packed stage-2 (E | 128,
-            # even ratio): the dense stage-2 fallback variant measured a
-            # 7% LOSS on V2 1.0-224 (E=96: 11,458 -> 10,684 — 3/4 lane
-            # occupancy + the expanded tensor round-tripping HBM), so
-            # E-indivisible blocks stay on the base fused route.
-            from ..ops.pallas_block_packed import (  # noqa: PLC0415
-                pack, packed_expand, separable_block_packed_s2)
-
-            ye = packed_expand(y, blk["exp"]["w"], blk["exp"]["b"], bd.act)
-            pw = jnp.pad(blk["prj"]["w"], ((0, 0), (0, 128 - cout_a)))
-            pb = jnp.pad(blk["prj"]["b"], (0, 128 - cout_a))
-            y = separable_block_packed_s2(
-                pack(ye, e_a), blk["dw"]["w"], blk["dw"]["b"], pw, pb,
-                e_a, 128, False, pw_epilogue=False)
-            continue
-        if (_packed_se_on(i, config.variant) and routing[i] == "fused"
-                and not collect
-                and bd.has_expand and bd.stride == 1):
-            from ..ops.pallas_se_packed import (  # noqa: PLC0415
-                se_block_packed, se_packed_fits, se_packed_geometry)
-
-            geo = se_packed_geometry(cin_a, e_a, cout_a, int(y.shape[2]),
-                                     bd.kernel, bd.stride)
-            if (geo is not None
-                    and (not bd.has_res or geo[2] == geo[0])
-                    and se_packed_fits(
-                        int(y.shape[0]), int(y.shape[1]), int(y.shape[2]),
-                        cin_a, e_a, cout_a, bd.kernel, bd.stride,
-                        jnp.dtype(y.dtype).itemsize)):
-                # Sub-lane-width s1 bottleneck (V3-Large b2/b4/b5: Cin
-                # 32-40 at 56²/28²): the dense whole-image kernel reads
-                # (…, Cin) windows at <= 31% lane occupancy; lane-pack
-                # R = 128/Cp pixels per vector instead (module docstring
-                # of ops/pallas_se_packed — SE folds in-kernel).
-                from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-
-                cp, ep_, cout_p, r_ = geo
-                xin = y if cin_a == cp else jnp.pad(
-                    y, ((0, 0), (0, 0), (0, 0), (0, cp - cin_a)))
-                ew = (blk["exp"]["w"] if int(blk["exp"]["w"].shape[0]) == cp
-                      else jnp.pad(blk["exp"]["w"],
-                                   ((0, cp - cin_a), (0, 0))))
-                if bd.se_mid:
-                    sargs = (blk["se"]["w1"], blk["se"]["b1"],
-                             blk["se"]["w2"], blk["se"]["b2"])
-                    sw = int(blk["se"]["w1"].shape[1])
-                else:
-                    sargs = (None, None, None, None)
-                    sw = 0
-                pw, pb = blk["prj"]["w"], blk["prj"]["b"]
-                out = se_block_packed(
-                    pack(xin, cp), ew, blk["exp"]["b"],
-                    blk["dw"]["w"], blk["dw"]["b"], *sargs, pw, pb,
-                    cp, bd.kernel, bd.act, bd.has_res, sw,
-                    block_n=PACKED_SE_BN)
-                # packed (N, H, W4, R*Cout_p) -> NHWC of Cout_p (free)
-                y = out.reshape(out.shape[0], out.shape[1], -1, cout_p)
-                continue
-        if (routing[i] == "fused" and not collect
-                and v3_fits(int(y.shape[0]), int(y.shape[1]),
-                            int(y.shape[2]), cin_a, e_a, cout_a, bd.kernel,
-                            bd.stride, bd.se_mid,
-                            jnp.dtype(y.dtype).itemsize,
-                            # wpad blocks lose to XLA's MXU convs in bf16
-                            # (measured, ops/pallas_ir_v3.v3_fits docstring)
-                            allow_wpad=False)):
-            from ..ops.pallas_ir_v3 import v3_block_pallas  # noqa: PLC0415
-
-            se_kw = {}
-            if bd.se_mid:
-                se_kw = dict(
-                    se_w1=blk["se"]["w1"], se_b1=blk["se"]["b1"],
-                    se_w2=blk["se"]["w2"], se_b2=blk["se"]["b2"])
-            ew, eb = ((blk["exp"]["w"], blk["exp"]["b"])
-                      if "exp" in blk else (None, None))
-            y = v3_block_pallas(
-                y, ew, eb, blk["dw"]["w"], blk["dw"]["b"],
-                blk["prj"]["w"], blk["prj"]["b"], k=bd.kernel,
-                stride=bd.stride, act=bd.act, residual=bd.has_res, **se_kw)
-            continue
-        z = y
-        if bd.has_expand:
-            z = ops.pointwise_conv(z, blk["exp"]["w"], bias=blk["exp"]["b"],
-                                   act=bd.act)
-            if collect:
-                acts[f"block{i:02d}_exp"] = z
-        z = ops.depthwise_conv_xla(z, blk["dw"]["w"], bd.stride,
-                                   bias=blk["dw"]["b"], act=bd.act)
-        if collect:
-            acts[f"block{i:02d}_dw"] = z
-        if bd.se_mid:
-            z = se_apply(z, blk["se"])
-            if collect:
-                acts[f"block{i:02d}_se"] = z
-        out = ops.pointwise_conv(z, blk["prj"]["w"], bias=blk["prj"]["b"])
-        if collect:
-            acts[f"block{i:02d}_prj"] = out
-        if bd.has_res:
-            out = out + y
-            if collect:
-                acts[f"block{i:02d}_out"] = out
-        y = out
+        y = bottleneck(params["blocks"][i], y, config.block_defs[i], acts,
+                       f"block{i:02d}")
     return y
 
 
-def predict_probs_v3(params, x, config: V3Config, **kw) -> jax.Array:
+def bottleneck(blk, y, bd: V3BlockDef,
+               acts: Optional[Dict[str, Any]] = None,
+               name: str = "") -> jax.Array:
+    """One V3 bottleneck: expand (when present), dw kxk, SE (when present),
+    linear projection, residual. `acts` collects the taps
+    {name}_exp/_dw/_se/_prj/_out."""
+    def tap(kind, v):
+        if acts is not None:
+            acts[f"{name}_{kind}"] = v
+
+    z = y
+    if bd.has_expand:
+        z = ops.pointwise_conv(z, blk["exp"]["w"], bias=blk["exp"]["b"],
+                               act=bd.act)
+        tap("exp", z)
+    z = ops.depthwise_conv_xla(z, blk["dw"]["w"], bd.stride,
+                               bias=blk["dw"]["b"], act=bd.act)
+    tap("dw", z)
+    if bd.se_mid:
+        z = se_apply(z, blk["se"])
+        tap("se", z)
+    out = ops.pointwise_conv(z, blk["prj"]["w"], bias=blk["prj"]["b"])
+    tap("prj", out)
+    if bd.has_res:
+        out = out + y
+        tap("out", out)
+    return out
+
+
+def predict_probs_v3(params, x, config: V3Config) -> jax.Array:
     return jax.nn.softmax(
-        forward_v3(params, x, config, **kw).astype(jnp.float32), axis=-1)
+        forward_v3(params, x, config).astype(jnp.float32), axis=-1)
 
 
 def predict_probs_v3_u8(params, images_u8, config: V3Config, *,
-                        dtype=jnp.float32, **kw) -> jax.Array:
+                        dtype=jnp.float32) -> jax.Array:
     """uint8 NHWC at any size -> probs (device resize/normalize, like V1)."""
     from ..ops import preprocess as prep  # noqa: PLC0415
 
     x = prep.preprocess(images_u8, config.resolution, dtype)
-    return predict_probs_v3(params, x, config, **kw)
+    return predict_probs_v3(params, x, config)

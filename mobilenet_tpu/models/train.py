@@ -7,8 +7,9 @@ affine is absorbed — training these is equivalent to training conv+frozen-BN).
 Used by __graft_entry__.dryrun_multichip to validate the multi-chip dp+tp
 sharding compiles and executes.
 
-The depthwise layers use the XLA grouped-conv path here (differentiable); the
-Pallas kernel is inference-only until it grows a custom VJP.
+Training runs in float32 on the XLA route, which is differentiable; the
+fused block kernel (ops/block_triton.py) has no VJP and serves only bfloat16
+inference (platform.block_kernel_serves).
 """
 
 from __future__ import annotations
@@ -23,21 +24,19 @@ from . import mobilenet_v1
 
 def model_forward(params: Dict[str, Any], images: jax.Array, config) -> jax.Array:
     """Differentiable forward for ANY model family config: dispatches on the
-    config type the way the runtime does (runtime/pipeline.py) — V1's
-    ModelConfig or V2's V2Config — always on the XLA route (the Pallas
-    kernels are inference-only until they grow custom VJPs)."""
+    config type the way the runtime does (runtime/pipeline.py)."""
     from .mobilenet_v2 import V2Config  # noqa: PLC0415
     from .mobilenet_v3 import V3Config  # noqa: PLC0415
 
     if isinstance(config, V2Config):
         from . import mobilenet_v2  # noqa: PLC0415
 
-        return mobilenet_v2.forward_v2(params, images, config, dw_backend="xla")
+        return mobilenet_v2.forward_v2(params, images, config)
     if isinstance(config, V3Config):
         from . import mobilenet_v3  # noqa: PLC0415
 
         return mobilenet_v3.forward_v3(params, images, config)
-    return mobilenet_v1.forward(params, images, config, use_pallas_dw=False)
+    return mobilenet_v1.forward(params, images, config)
 
 
 def cross_entropy_loss(

@@ -43,7 +43,10 @@ def build(force: bool = False) -> str:
         "g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-pthread",
         _SRC, "-o", _LIB, "-ljpeg", "-lpng",
     ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError:
+        raise RuntimeError("native_io build failed: g++ not found") from None
     if proc.returncode != 0:
         raise RuntimeError(
             f"native_io build failed ({' '.join(cmd)}):\n{proc.stderr}")

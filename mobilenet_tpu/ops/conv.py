@@ -1,9 +1,9 @@
-"""XLA-path convolution ops (NHWC, channels-last — TPU-native layout).
+"""XLA-path convolution ops (NHWC, channels-last).
 
 These replace the reference's OpenCL-C device kernels (SURVEY.md SS2 C3-C6):
   - conv2d_same      <- __kernel void conv      (3x3 standard, stem)
   - depthwise_conv   <- __kernel void dw_conv   (3x3 per-channel)
-  - pointwise_conv   <- __kernel void pw_conv   (1x1 = per-pixel matmul -> MXU)
+  - pointwise_conv   <- __kernel void pw_conv   (1x1 = per-pixel matmul)
   - global_avg_pool / fc <- __kernel void avg_pool / fc
 
 BatchNorm is folded into conv weights + a per-channel bias at load time
@@ -29,9 +29,10 @@ _DIMS = ("NHWC", "HWIO", "NHWC")
 
 
 def _precision(x: jax.Array):
-    """True-fp32 MXU passes for the float32 verify path (the accuracy gate of
-    BASELINE.json:5 requires real fp32 — TPU matmuls default to bf16 passes);
-    default precision for the bf16 throughput path."""
+    """True-fp32 passes for the float32 verify path (the accuracy gate of
+    BASELINE.json:5 requires real fp32 — a default-precision f32 matmul or
+    conv may run in TF32 on the GPU); default precision for the bf16
+    throughput path."""
     return lax.Precision.HIGHEST if x.dtype == jnp.float32 else None
 
 
@@ -111,9 +112,9 @@ def depthwise_conv_xla(
     input size, which resolution % 32 == 0 guarantees at each stride-2
     point).
 
-    Reference analog: the dw_conv OpenCL kernel (SURVEY.md SS2 C4). The Pallas
-    channel-tiled kernel (ops/pallas_dw.py) is the optimized path; this is the
-    always-correct fallback and the differentiable path for the train step.
+    Reference analog: the dw_conv OpenCL kernel (SURVEY.md SS2 C4). Every
+    family's depthwise layers run here, except the V1 blocks that the fused
+    kernel (ops/block_triton.py) serves on the GPU.
     """
     c = x.shape[-1]
     assert w.shape[2:] == (1, c) and w.shape[0] == w.shape[1] in (3, 5), (
@@ -138,11 +139,10 @@ def pointwise_conv(
     relu6: Optional[bool] = None,
     act: Optional[str] = None,
 ) -> jax.Array:
-    """Pointwise 1x1 conv as an explicit MXU matmul: (N*H*W, Cin) @ (Cin, Cout).
+    """Pointwise 1x1 conv as an explicit matmul: (N*H*W, Cin) @ (Cin, Cout).
 
-    Reference analog: the pw_conv OpenCL kernel (SURVEY.md SS2 C5). On TPU this
-    is exactly an MXU matmul with the BN+ReLU epilogue fused by XLA
-    (BASELINE.json:5 "lowers to MXU matmuls with fused BatchNorm+ReLU epilogues").
+    Reference analog: the pw_conv OpenCL kernel (SURVEY.md SS2 C5): a matmul
+    with the BN+ReLU epilogue fused by XLA.
     w: (Cin, Cout) — already squeezed from (1, 1, Cin, Cout).
     """
     n, h, ww, cin = x.shape

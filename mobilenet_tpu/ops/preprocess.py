@@ -1,7 +1,7 @@
 """On-device image preprocessing, fused into the jitted graph.
 
 Reference analog: C10 (SURVEY.md SS2) — host-side decode/resize/normalize. The
-TPU rebuild keeps JPEG *decode* on host (no TPU decode op — SURVEY.md SS7) and
+rebuild keeps JPEG *decode* on host (no device decode op — SURVEY.md SS7) and
 moves resize + mean/scale normalization + layout on device, inside the same XLA
 program as the model ("Image preprocessing ... fuses into the same XLA graph",
 BASELINE.json:5).

@@ -1,8 +1,8 @@
 """Device mesh + sharding layouts for multi-chip scaling.
 
 The reference is a single-FPGA stack with no distributed backend (SURVEY.md SS2
-"Parallelism strategies" table); its only transport is PCIe DMA. The TPU-native
-scaling story is jax.sharding over a Mesh with XLA collectives riding ICI:
+"Parallelism strategies" table); its only transport is PCIe DMA. Here scaling
+is jax.sharding over a Mesh with XLA collectives (NCCL over NVLink on GPUs):
 
   - data parallelism: batch dimension sharded over the "data" axis (the analog
     of the reference's batch-256 throughput mode, scaled across chips)
@@ -56,8 +56,7 @@ def param_shardings(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     from the previous layer — XLA inserts the all-gather); fc shards Cin.
 
     V2/V3 shard the EXPANDED dim — the widest tensors and where the dw
-    work lives (the tp_fused.py layout, GSPMD-annotated): expand shards
-    Cout, dw shards along, the projection shards its Cin CONTRACTION (so
+    work lives: expand shards Cout, dw shards along, the projection shards its Cin CONTRACTION (so
     GSPMD inserts one psum per block and block outputs/residuals stay
     replicated). V3's SE shards w1's contraction and w2's output over the
     same axis; the squeeze vector (Se) stays replicated.

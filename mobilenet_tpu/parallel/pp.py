@@ -2,11 +2,11 @@
 
 The reference is a single-FPGA stack (SURVEY.md SS2 "Parallelism
 strategies") — its closest analog is the layer-pipelined dataflow INSIDE the
-bitstream. The TPU-native scaling story splits the 28-layer program into S
+bitstream. Here the 28-layer program splits into S
 contiguous stages, one per device on a 1-D "pipe" mesh, and streams M
 microbatches through them with the classic GPipe schedule: at step t device
 d runs stage d on microbatch t-d, and stage boundaries shift one hop along
-the ring with a single `lax.ppermute` per step (riding ICI). The whole
+the ring with a single `lax.ppermute` per step. The whole
 schedule is ONE jitted `lax.scan` of M+S-1 steps inside `shard_map` — no
 host round-trips, no data-dependent control flow.
 
@@ -75,8 +75,7 @@ def _unit_in_shapes(config: ModelConfig,
                     params: Dict[str, Any]) -> List[Tuple[int, int, int]]:
     """Per-sample activation shape ENTERING each unit (len == N_UNITS).
 
-    Spatial sizes use TF-SAME ceil division — the whole stack's convention
-    (see mobilenet_v1._chain_runs)."""
+    Spatial sizes use TF-SAME ceil division — the whole stack's convention."""
     res = config.resolution
     shapes = [(res, res, 3)]
     hw = -(-res // 2)  # stem is stride 2
@@ -106,7 +105,7 @@ def _unit_costs(config: ModelConfig, params: Dict[str, Any]) -> List[float]:
     return costs
 
 
-def _v1_units(config, params, dw_backend, b):
+def _v1_units(config, params):
     """V1 family adapter: (n_units, in_shapes, costs, run). `run(p, y,
     start, stop)` executes units [start, stop) — unit 0 = stem, 1..n-2 =
     blocks, n-1 = head (emits (b, nc) f32 logits)."""
@@ -114,7 +113,6 @@ def _v1_units(config, params, dw_backend, b):
 
     shapes = _unit_in_shapes(config, params)
     costs = _unit_costs(config, params)
-    routing = mv1._routing(config, False, dw_backend, b)
     relu6 = config.relu6
     n = N_UNITS
 
@@ -126,7 +124,7 @@ def _v1_units(config, params, dw_backend, b):
             u = 1
         blk_stop = min(stop, n - 1) - 1
         if blk_stop > u - 1:
-            y = mv1._run_blocks(p, y, config, routing, relu6, None,
+            y = mv1._run_blocks(p, y, config, relu6, None,
                                 start=u - 1, stop=blk_stop)
         if stop == n:
             pooled = cops.global_avg_pool(y)
@@ -137,7 +135,7 @@ def _v1_units(config, params, dw_backend, b):
     return n, shapes, costs, run
 
 
-def _v2_units(config, params, dw_backend, b):
+def _v2_units(config, params):
     """V2 family adapter (stem + 17 inverted-residual blocks + head)."""
     from ..models import mobilenet_v2 as mv2  # noqa: PLC0415
 
@@ -167,7 +165,6 @@ def _v2_units(config, params, dw_backend, b):
     hh, _, cc = shapes[n - 1]
     cl = int(params["conv_last"]["w"].shape[1])
     costs[n - 1] = float(hh * hh * cc * cl + cl * config.num_classes)
-    routing = mv2._routing_v2(config, dw_backend, b)
 
     def run(p, y, start, stop):
         u = start
@@ -177,8 +174,7 @@ def _v2_units(config, params, dw_backend, b):
             u = 1
         blk_stop = min(stop, n - 1) - 1
         if blk_stop > u - 1:
-            y = mv2.run_blocks_v2(p, y, config, routing,
-                                  start=u - 1, stop=blk_stop)
+            y = mv2.run_blocks_v2(p, y, config, start=u - 1, stop=blk_stop)
         if stop == n:
             y = cops.pointwise_conv(y, p["conv_last"]["w"],
                                     bias=p["conv_last"]["b"], relu6=True)
@@ -190,7 +186,7 @@ def _v2_units(config, params, dw_backend, b):
     return n, shapes, costs, run
 
 
-def _v3_units(config, params, dw_backend, b):
+def _v3_units(config, params):
     """V3 family adapter (stem + bottlenecks + conv_last/pool/head/fc)."""
     from ..models import mobilenet_v3 as mv3  # noqa: PLC0415
 
@@ -225,7 +221,6 @@ def _v3_units(config, params, dw_backend, b):
                          + cl * int(params["head"]["w"].shape[1])
                          + int(params["head"]["w"].shape[1])
                          * config.num_classes)
-    routing = mv3._routing_v3(config, dw_backend, b)
     act = config.head_act
 
     def run(p, y, start, stop):
@@ -236,8 +231,7 @@ def _v3_units(config, params, dw_backend, b):
             u = 1
         blk_stop = min(stop, n - 1) - 1
         if blk_stop > u - 1:
-            y = mv3.run_blocks_v3(p, y, config, routing,
-                                  start=u - 1, stop=blk_stop)
+            y = mv3.run_blocks_v3(p, y, config, start=u - 1, stop=blk_stop)
         if stop == n:
             y = cops.pointwise_conv(y, p["conv_last"]["w"],
                                     bias=p["conv_last"]["b"], act=act)
@@ -249,16 +243,16 @@ def _v3_units(config, params, dw_backend, b):
     return n, shapes, costs, run
 
 
-def _units_for(config, params, dw_backend, b):
+def _units_for(config, params):
     """Family dispatch: the per-unit decomposition pp schedules over."""
     from ..models.mobilenet_v2 import V2Config  # noqa: PLC0415
     from ..models.mobilenet_v3 import V3Config  # noqa: PLC0415
 
     if isinstance(config, V2Config):
-        return _v2_units(config, params, dw_backend, b)
+        return _v2_units(config, params)
     if isinstance(config, V3Config):
-        return _v3_units(config, params, dw_backend, b)
-    return _v1_units(config, params, dw_backend, b)
+        return _v3_units(config, params)
+    return _v1_units(config, params)
 
 
 def plan_stages(config, params: Dict[str, Any],
@@ -268,7 +262,7 @@ def plan_stages(config, params: Dict[str, Any],
     Every stage gets >= 1 unit; trailing stages are never starved (the
     greedy target re-divides the remaining mass each cut). Works for all
     three families (unit count = stem + blocks + head per family)."""
-    n_units, _, costs, _ = _units_for(config, params, "xla", 1)
+    n_units, _, costs, _ = _units_for(config, params)
     if not 1 <= n_stages <= n_units:
         raise ValueError(
             f"n_stages must be in [1, {n_units}], got {n_stages}")
@@ -303,18 +297,14 @@ def forward_pp(
     mesh: Mesh,
     *,
     n_microbatches: Optional[int] = None,
-    dw_backend="xla",
 ) -> jax.Array:
     """Pipeline-parallel forward: logits (N, num_classes), replicated.
 
     `x` is the full preprocessed batch (N, H, W, 3); it is split into M
     microbatches of N/M (M defaults to 2*S — the GPipe bubble is
     (S-1)/(M+S-1), so M >= 2S keeps it under a third). `params` may live
-    anywhere; they are replicated over the pipe axis here.
-
-    dw_backend defaults to "xla": per-block routing applies INSIDE each
-    stage exactly as in mobilenet_v1._run_blocks (fused Pallas works under
-    shard_map — tests cover both routings).
+    anywhere; they are replicated over the pipe axis here. Each stage runs
+    its blocks exactly as mobilenet_v1._run_blocks does.
     """
     S = mesh.shape[PIPE_AXIS]
     N = int(x.shape[0])
@@ -323,7 +313,7 @@ def forward_pp(
         raise ValueError(f"batch {N} not divisible by n_microbatches={M}")
     b = N // M
     nc = config.num_classes
-    n_units, shapes, _, run_units = _units_for(config, params, dw_backend, b)
+    n_units, shapes, _, run_units = _units_for(config, params)
     bounds = plan_stages(config, params, S)
     # fixed inter-stage buffer: max over live boundaries (and the logits row)
     L = max([int(np.prod(shapes[bounds[s][0]])) for s in range(1, S)] + [nc])

@@ -7,7 +7,7 @@ the oracles.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
@@ -40,76 +40,18 @@ def _as_device_tree(q: QuantizedParams) -> Dict[str, Any]:
     }
 
 
-# Dense fused blocks whose OUTPUT spatial side is <= this carry their
-# requantized integers as bf16 between blocks (exact for |v| <= 127): the
-# consumer skips the i8 -> i32 -> f32 window widen (a relayout on (32,128)
-# int8 tiles) and the producer skips the i8 store, for 2x the HBM bytes on
-# that boundary. Measured on v5e (1.0-224 batch-256, tools/ab_carry.py
-# interleaved medians): a WASH — 12.12 ms (off) vs 12.13 (<=14) vs 12.15
-# (<=28) vs 12.31 (all dense) — the i8 widen fuses into the window pipeline
-# and costs nothing, while carried windows double scratch DMA bytes. Default
-# OFF; kept as a tested option + tool (bit-identical either way).
-BF16_CARRY_MAX_HW = 0
-
-
-def _routing_i8(config: ModelConfig, use_fused, batch: int):
-    """Resolve the per-block int8 backend list (len == 13), mirroring the
-    float path's models.mobilenet_v1._routing.
-
-    `use_fused` accepts: None (auto by platform), a bool (legacy all-or-
-    nothing), "xla"/"fused", "mixed" (xla for the two 112-squared blocks +
-    fused from block 2 — the float batch-1 winner's shape), "auto"
-    (measured v5e defaults: fused at throughput batches, mixed at small
-    batches), or an explicit per-block tuple.
-    """
-    n = len(config.block_strides)
-    if use_fused is None:
-        use_fused = jax.default_backend() == "tpu"
-    if isinstance(use_fused, bool):
-        return ("fused" if use_fused else "xla",) * n
-    if use_fused == "auto":
-        # Measured int8 crossover on v5e at 1.0-224
-        # (benchmarks/routing_crossover_v5e.jsonl, round 3): fused wins every
-        # batch >= 2 (5.3k vs 3.5k xla img/s at batch 2, 24.5k vs 3.1k at
-        # 128); at batch 1 ALL-XLA wins — 0.260 ms vs 0.352 fused and 0.461
-        # mixed (differenced chains). Unlike bf16, the mixed tuple LOSES at
-        # batch 1: the int8 xla blocks carry requant work that the fused
-        # back-half can't win back. The ~0.14 ms gap to bf16's 0.117 is the
-        # mandatory exact-requant arithmetic (docs/design.md §3.4).
-        use_fused = "fused" if batch >= 2 else "xla"
-    if use_fused == "mixed":
-        return ("xla",) * 2 + ("fused",) * (n - 2)
-    if isinstance(use_fused, str):
-        assert use_fused in ("xla", "fused"), use_fused
-        return (use_fused,) * n
-    assert len(use_fused) == n, use_fused
-    return tuple(use_fused)
-
-
 def forward_i8(
     dev: Dict[str, Any],
     x_i8: jax.Array,
     config: ModelConfig,
     *,
-    use_pallas_dw: bool = False,
-    use_fused=False,
     collect: bool = False,
-    num_blocks=None,
-    bf16_carry_max_hw: Optional[int] = None,
 ):
     """x_i8: (N, H, W, 3) quantized input at s_in = 1/127 — int8, or bfloat16
-    holding the same integers (the production stem path; conv1 consumes bf16
-    on the MXU either way and the results are bit-identical).
-    Returns float32 logits.
-    use_fused: per-block routing spec, resolved by _routing_i8 (bools keep
-    their legacy all-or-nothing meaning).
-    num_blocks: run only conv1 + the first num_blocks blocks and return that
-    int8 activation (tools/prefix_attr.py segment attribution)."""
-    from .quantize import ACT_IN_SCALE  # noqa: PLC0415
-
+    holding the same integers (the production stem path; conv1 reads either
+    and the results are bit-identical). Returns float32 logits."""
     acts: Dict[str, jax.Array] = {}
     relu6 = config.relu6
-    routing = _routing_i8(config, use_fused, int(x_i8.shape[0]))
 
     c1 = dev["conv1"]
     y = qops.conv1_i8(x_i8, c1["w"], c1["b"], c1["m"], c1["six_q"], relu6)
@@ -117,65 +59,14 @@ def forward_i8(
         acts["conv1"] = y
 
     for i, (blk, stride) in enumerate(zip(dev["blocks"], config.block_strides)):
-        if num_blocks is not None and i >= num_blocks:
-            return y
         d = blk["dw"]
-        if routing[i] == "fused" and not collect:
-            p = blk["pw"]
-            cin = y.shape[-1]
-            cout = p["w"].shape[-1]
-            r = 128 // cin if (cin < 128 and 128 % cin == 0) else 0
-            packed_ok = r and (y.shape[2] * cin) % 128 == 0 and (
-                (r * cout % 128 == 0) if stride == 1
-                else (r % 2 == 0 and (r // 2) * cout % 128 == 0 and y.shape[1] % 2 == 0)
-            )
-            if packed_ok:
-                from ..ops import pallas_block_packed_mxu as pbm  # noqa: PLC0415
-                from ..ops.pallas_block_packed import pack, unpack  # noqa: PLC0415
-                from .pallas_block_packed_i8 import (  # noqa: PLC0415
-                    separable_block_packed_i8,
-                )
-
-                mxu = (pbm.DW_MXU_S1_I8 if stride == 1 else pbm.DW_MXU_S2_I8)
-                kern = (pbm.separable_block_packed_i8_mxu if mxu
-                        else separable_block_packed_i8)
-                y = unpack(
-                    kern(
-                        pack(y, cin), d["w"], d["b"], d["m"], p["w"], p["b"],
-                        p["m"], cin, cout, stride, d["six_q"], p["six_q"], relu6,
-                    ),
-                    cout,
-                )
-            else:
-                from .pallas_block_i8 import separable_block_i8  # noqa: PLC0415
-
-                carry = (BF16_CARRY_MAX_HW if bf16_carry_max_hw is None
-                         else bf16_carry_max_hw)
-                out_dtype = (
-                    jnp.bfloat16
-                    if carry and y.shape[1] // stride <= carry
-                    else jnp.int8
-                )
-                y = separable_block_i8(
-                    y, d["w"], d["b"], d["m"], p["w"], p["b"], p["m"], stride,
-                    d["six_q"], p["six_q"], relu6, out_dtype=out_dtype,
-                )
-            continue
-        if use_pallas_dw:
-            from .pallas_dw_i8 import depthwise_i8_pallas  # noqa: PLC0415
-
-            y = depthwise_i8_pallas(y, d["w"], d["b"], d["m"], stride, d["six_q"], relu6)
-        else:
-            y = qops.depthwise_i8_xla(y, d["w"], d["b"], d["m"], d["six_q"], stride, relu6)
+        y = qops.depthwise_i8_xla(y, d["w"], d["b"], d["m"], d["six_q"], stride, relu6)
         if collect:
             acts[f"block{i:02d}_dw"] = y
         p = blk["pw"]
         y = qops.pointwise_i8(y, p["w"], p["b"], p["m"], p["six_q"], relu6)
         if collect:
             acts[f"block{i:02d}_pw"] = y
-
-    if num_blocks is not None:  # truncated prefix entry: blocks only, no head
-        return y
 
     pooled = qops.avgpool_i8(y)
     if collect:
@@ -190,29 +81,6 @@ def forward_i8(
     return logits
 
 
-def quantize_for_device(folded, config: ModelConfig, use_fused=None):
-    """Quantize with the device-routing channel-padding pass applied.
-
-    Mirrors InferencePipeline: alpha=0.75-style channel counts (24/48/96)
-    divide neither 128 nor any lane group, so the packed int8 kernels can't
-    apply and those configs fall to slow paths (measured: 0.75-224 int8 ran
-    10.3k img/s vs 24.2k bf16 before padding). Zero-padded channels quantize
-    to zero weights/bias and stay exactly zero through every requant, so
-    logits are unchanged bit-for-bit."""
-    from .quantize import quantize as _quantize
-
-    if use_fused is None:
-        use_fused = jax.default_backend() == "tpu"
-    # Padding is needed whenever ANY block may route a fused kernel —
-    # every spec except all-xla (False or "xla").
-    if use_fused not in (False, "xla"):
-        from ..checkpoints.padding import needs_padding, pad_channels
-
-        if needs_padding(folded):
-            folded = pad_channels(folded)
-    return _quantize(folded, config)
-
-
 class Int8Pipeline:
     """Pipeline-shaped adapter over the int8 network: exposes the
     `run_batch(uint8) -> probs` + `.config` surface MicroBatchServer needs,
@@ -220,12 +88,12 @@ class Int8Pipeline:
     its fixed-point FPGA pipeline; SURVEY.md SS2 C7/C12)."""
 
     def __init__(self, config: ModelConfig, *, seed: int = 0, params=None,
-                 use_fused=None, mesh=None):
+                 mesh=None):
         """`mesh`: optional jax.sharding.Mesh with a 'data' axis — batches
-        shard across it (data-parallel int8 serving over ICI, mirroring the
-        fp32 InferencePipeline's mesh wiring; quantized constants replicated,
-        the Pallas int8 kernels run per-shard under shard_map)."""
+        shard across it (data-parallel int8 serving, mirroring the fp32
+        InferencePipeline's mesh wiring; quantized constants replicated)."""
         from ..checkpoints import fold_bn, init_params
+        from .quantize import quantize
 
         self.config = config
         if mesh is not None:
@@ -235,9 +103,8 @@ class Int8Pipeline:
         self.mesh = mesh
         folded = params if params is not None else fold_bn(
             init_params(config, seed=seed), eps=config.bn_eps)
-        self.q = quantize_for_device(folded, config, use_fused=use_fused)
-        self._infer, self._dev = make_int8_infer(self.q, config,
-                                                 use_fused=use_fused, mesh=mesh)
+        self.q = quantize(folded, config)
+        self._infer, self._dev = make_int8_infer(self.q, config, mesh=mesh)
         # softmax folded into the jitted program (jit-of-jit inlines) — no
         # per-batch eager dispatches on the serving hot path.
         self._probs = jax.jit(
@@ -247,21 +114,14 @@ class Int8Pipeline:
         return np.asarray(self._probs(jnp.asarray(images_u8)))
 
 
-def make_int8_infer(q: QuantizedParams, config: ModelConfig, *,
-                    use_pallas_dw: bool = False, use_fused=None, mesh=None):
+def make_int8_infer(q: QuantizedParams, config: ModelConfig, *, mesh=None):
     """Compiled int8 entry: uint8 images -> float32 logits, preprocessing and
-    input quantization fused into the same program. use_fused=None resolves
-    to "auto" on TPU — batch-dependent per-block routing (_routing_i8:
-    fused from batch 2 up, ALL-XLA at batch 1 per the measured int8
-    crossover, benchmarks/routing_crossover_v5e.jsonl) — and the XLA ops on
-    CPU, mirroring the float pipeline's auto routing. With `mesh`, the batch
+    input quantization fused into the same program. With `mesh`, the batch
     shards over its 'data' axis (int8 data-parallel serving — the reference
     served its fixed-point pipeline multi-stream, SURVEY.md SS2 C7/C12)."""
     from ..ops import preprocess as prep
     from .quantize import ACT_IN_SCALE
 
-    if use_fused is None:
-        use_fused = "auto" if jax.default_backend() == "tpu" else False
     dev = _as_device_tree(q)
 
     if mesh is not None:
@@ -277,20 +137,14 @@ def make_int8_infer(q: QuantizedParams, config: ModelConfig, *,
 
     def infer(images_u8):
         x = prep.preprocess(images_u8, config.resolution, jnp.float32)
-        # Quantize straight into bf16 integer values: the stem conv consumes
-        # bf16 on the MXU, so an int8 intermediate would only buy two
-        # relayouts (see quantize_input_dev). Bit-identical integers.
-        x_q = qops.quantize_input_dev(x, ACT_IN_SCALE, out_dtype=jnp.bfloat16)
-        return forward_i8(dev, x_q, config, use_pallas_dw=use_pallas_dw,
-                          use_fused=use_fused)
+        x_q = qops.quantize_input_dev(x, ACT_IN_SCALE)
+        return forward_i8(dev, x_q, config)
 
     if mesh is None:
         return jax.jit(infer), dev
 
     # Data-parallel over the mesh: each device runs the full int8 network on
-    # its batch shard (shard_map keeps the Pallas kernels local — the SPMD
-    # partitioner cannot split an opaque custom call). Mirrors
-    # runtime/pipeline.py's fp32 mesh wiring.
+    # its batch shard. Mirrors runtime/pipeline.py's fp32 mesh wiring.
     from jax import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 

@@ -1,8 +1,8 @@
 """Device-side INT8 ops with per-layer requantization (BASELINE.json:10).
 
 Semantics contract (shared bit-for-bit with cpu_ref.cpp and quant/oracle.py):
-  acc: exact int32 accumulation (pw/fc ride the MXU's native s8xs8->s32;
-       dw/conv1 accumulate on the VPU / via exact-integer paths)
+  acc: exact int32 accumulation (pw/fc are s8 x s8 -> s32 dot_generals;
+       dw/conv1 accumulate integers exactly in float32)
   requant: v = float32(acc) * m[oc]; ReLU in-domain (v<0 -> 0, v>six_q -> six_q);
            round-half-to-even; clamp to [-128, 127]; cast int8.
 
@@ -12,8 +12,6 @@ reference's "bit-matching ... per layer" gate (SURVEY.md SS7 hard parts).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +29,7 @@ def requantize(acc_i32: jax.Array, m: jax.Array, six_q, relu6: bool = True) -> j
         if float(six_q) < 127.5:
             # In-domain ReLU6 bounds round(v) to [0, 127] (six_q is 127.0 for
             # the fixed 6/127 hidden scale): the final clip is provably
-            # redundant — fewer VPU ops per element, bit-identical.
+            # redundant — fewer ops per element, bit-identical.
             return jnp.round(v).astype(jnp.int8)
     r = jnp.round(v)  # round-half-to-even, matches nearbyintf
     return jnp.clip(r, -128, 127).astype(jnp.int8)
@@ -39,7 +37,7 @@ def requantize(acc_i32: jax.Array, m: jax.Array, six_q, relu6: bool = True) -> j
 
 def pointwise_i8(x_i8: jax.Array, w_i8: jax.Array, bias_i32: jax.Array,
                  m: jax.Array, six_q, relu6: bool = True) -> jax.Array:
-    """Pointwise int8 matmul on the MXU: (N*H*W, Cin)s8 @ (Cin, Cout)s8 -> s32."""
+    """Pointwise int8 matmul: (N*H*W, Cin)s8 @ (Cin, Cout)s8 -> s32."""
     n, h, w, cin = x_i8.shape
     cout = w_i8.shape[1]
     acc = lax.dot_general(
@@ -58,12 +56,8 @@ def depthwise_i8_xla(x_i8: jax.Array, w_i8: jax.Array, bias_i32: jax.Array,
 
     Products are <= 127*127 and the 9-tap sum + bias stays far below 2^24, so
     float32 tap accumulation is exact integer arithmetic in ANY order. The
-    taps are written as shifted slices, NOT lax.conv: XLA's f32 grouped conv
-    on TPU is not bit-reliable even at Precision.HIGHEST (measured: 2502/4096
-    outputs off by +-1 ULP-level conv error, plus NaNs, at c=8 h=16 — enough
-    to flip the post-requant integer). Used on CPU and as the non-Pallas
-    reference path; perf-insensitive (the fused Pallas kernels are the fast
-    path).
+    taps are written as shifted slices, not lax.conv, so no backend's
+    grouped-conv algorithm choice can touch the arithmetic.
     """
     from ..oracle.numpy_ref import same_pad  # noqa: PLC0415 (shared semantics)
 
@@ -84,44 +78,38 @@ def depthwise_i8_xla(x_i8: jax.Array, w_i8: jax.Array, bias_i32: jax.Array,
     return requantize(acc_i32, m, six_q, relu6)
 
 
-def conv1_i8(x_i8: jax.Array, w_i8: jax.Array, bias_i32: jax.Array,
-             m: jax.Array, six_q, relu6: bool = True) -> jax.Array:
-    """Stem 3x3 s2 conv as a native bf16 MXU conv with EXACT int semantics.
+def conv3x3_s2_acc(x_q: jax.Array, w_i8: jax.Array) -> jax.Array:
+    """Exact int32 accumulator of the 3x3 stride-2 SAME stem conv.
 
-    x_i8 may be int8 or bfloat16 carrying the same integers (the production
-    path quantizes straight into bf16 — quantize_input_dev).
-
-    |x|,|w| <= 127 are exactly representable in bf16 (7-bit integers), each
-    product <= 16129 is exact in the f32 accumulator, and the 27-tap sum +
-    bias stays far below 2^24 — so every intermediate is an exact integer in
-    ANY accumulation order, and the result equals the int32 oracle bit-for-
-    bit. Measured: the previous im2col formulation (9 strided int8 slices +
-    27-lane concat) cost 19.1 ms/batch-256 on v5e — 90% of the entire int8
-    network; the native conv is ~1.7 ms.
-    """
+    x_q holds integers |x| <= 127 (int8, or bfloat16 carrying them). Both
+    operands are exact in float32, each product <= 16129 is exact, and the
+    27-term sums stay far below 2^24, so a float32 conv yields the exact
+    integer in ANY accumulation order. The operands stay float32 at HIGHEST
+    precision: a bf16 conv whose output a backend rounds to bf16 would not
+    be exact."""
     y = lax.conv_general_dilated(
-        x_i8.astype(jnp.bfloat16),
-        w_i8.astype(jnp.bfloat16),
+        x_q.astype(jnp.float32),
+        w_i8.astype(jnp.float32),
         window_strides=(2, 2),
         padding="SAME",
         dimension_numbers=_DIMS,
-        preferred_element_type=jnp.float32,
+        precision=lax.Precision.HIGHEST,
     )
-    acc = y.astype(jnp.int32) + bias_i32
-    return requantize(acc, m, six_q, relu6)
+    return y.astype(jnp.int32)
+
+
+def conv1_i8(x_i8: jax.Array, w_i8: jax.Array, bias_i32: jax.Array,
+             m: jax.Array, six_q, relu6: bool = True) -> jax.Array:
+    """Stem 3x3 s2 conv with exact int semantics (conv3x3_s2_acc), then the
+    shared requant."""
+    return requantize(conv3x3_s2_acc(x_i8, w_i8) + bias_i32, m, six_q, relu6)
 
 
 def avgpool_i8(x_i8: jax.Array) -> jax.Array:
     """Global average pool in the quantized domain: exact integer sum, exact
-    float32 mean, round-half-even back to int8 (same scale). Accepts int8 or
-    bf16-carried integers (quant/model.py BF16_CARRY_MAX_HW)."""
+    float32 mean, round-half-even back to int8 (same scale)."""
     n, h, w, c = x_i8.shape
-    if x_i8.dtype == jnp.int8:
-        acc = jnp.sum(x_i8.astype(jnp.int32), axis=(1, 2)).astype(jnp.float32)
-    else:
-        # bf16-carried integers: h*w*127 stays far below 2^24, so f32
-        # accumulation yields the same integer sum as i32.
-        acc = jnp.sum(x_i8.astype(jnp.float32), axis=(1, 2))
+    acc = jnp.sum(x_i8.astype(jnp.int32), axis=(1, 2)).astype(jnp.float32)
     v = acc * jnp.float32(1.0 / (h * w))
     return jnp.clip(jnp.round(v), -128, 127).astype(jnp.int8)
 
@@ -140,14 +128,7 @@ def fc_i8_logits(x_i8: jax.Array, w_i8: jax.Array, s_in, s_w: jax.Array,
 
 def quantize_input_dev(x_f: jax.Array, s_in, out_dtype=jnp.int8) -> jax.Array:
     """Preprocessed [-1,1] activations -> quantized input (device twin of
-    quantize.quantize_input).
-
-    out_dtype=bfloat16 stores the SAME integers as bf16 values (|q| <= 127 is
-    exact in bf16) for the stem's MXU conv. The int8 materialization costs two
-    relayouts on the hot path — f32 -> (32,128)-tiled i8 at the write, i8 ->
-    bf16 at conv1's read — measured 1.4 ms/batch-256 at 1.0-224 (~12% of the
-    whole int8 network); the bf16 store fuses into the preprocess pass and
-    feeds the MXU directly. Bit-identical requant results either way.
-    """
+    quantize.quantize_input). out_dtype=bfloat16 stores the SAME integers
+    (|q| <= 127 is exact in bf16)."""
     v = x_f.astype(jnp.float32) / jnp.float32(s_in)
     return jnp.clip(jnp.round(v), -127, 127).astype(out_dtype)

@@ -105,8 +105,7 @@ def fq_requant(acc: jax.Array, m: jax.Array, six_q: float = _HIDDEN_SIX_Q,
 
 def _dw3x3_taps(x: jax.Array, w: jax.Array, stride: int) -> jax.Array:
     """Depthwise 3x3 as 9 shifted-slice FMAs — exact integers AND
-    differentiable (the lax grouped f32 conv is not bit-reliable on TPU:
-    qops.depthwise_i8_xla's measured note)."""
+    differentiable (the qops.depthwise_i8_xla construction)."""
     n, h, wd, c = x.shape
     h_out, w_out = -(-h // stride), -(-wd // stride)
     lo_h, hi_h = same_pad(h, stride, 3)
@@ -132,8 +131,7 @@ def qat_forward(
 
     Mirrors quant/oracle.forward_all layer for layer; with collect=True the
     taps use the oracle's layer names and hold the SAME integers (as f32).
-    Always the differentiable f32 route — this is a TRAINING graph; the
-    fused Pallas kernels are inference-only (models/train.py docstring).
+    Always the differentiable f32 route — this is a TRAINING graph.
     Logits are real-unit floats (the int8 head keeps float logits too).
     """
     assert config.relu6, "the int8 fixed-point scheme requires ReLU6 bounds"
@@ -327,7 +325,7 @@ def fq_requant_named(acc: jax.Array, a: jax.Array, inv_s: float,
     if _v3.FOLDED_REQUANT:
         if act == "hswish":
             v = acc * av
-            t = jnp.clip(v + jnp.float32(3.0), 0.0, 6.0)
+            t = _v3.hsig_num(v)
             w = (v * t) * (jnp.float32(inv_s) * jnp.float32(1.0 / 6.0))
             shadow = jnp.clip(w, -128.0, 127.0)
             return _ste(shadow, jnp.clip(jnp.round(w), -128, 127))
@@ -340,7 +338,7 @@ def fq_requant_named(acc: jax.Array, a: jax.Array, inv_s: float,
     if act == "relu":
         v = jnp.maximum(v, jnp.float32(0.0))
     elif act == "hswish":
-        g = jnp.clip(v + jnp.float32(3.0), 0.0, 6.0) * jnp.float32(1.0 / 6.0)
+        g = _v3.hsig_num(v) * jnp.float32(1.0 / 6.0)
         v = v * g
     else:
         assert act == "linear", act
@@ -360,6 +358,8 @@ def _fq_se(z: jax.Array, se: Dict[str, Any], s_dw: float, s_g1: float) -> jax.Ar
     """Quantized squeeze-excite gate (twin of quant/v3._se_i8_np): integer
     matmuls, f32 only elementwise; gradients reach both SE weight pairs and
     z (through the product AND the pooled path)."""
+    from . import v3 as _v3
+
     pooled = _fq_pool_sat(z)
     w1_q, s_w1 = fq_weight(se["w1"], out_axis=1)
     b1_q = fq_bias(se["b1"], jnp.float32(s_dw) * s_w1)
@@ -370,7 +370,7 @@ def _fq_se(z: jax.Array, se: Dict[str, Any], s_dw: float, s_g1: float) -> jax.Ar
     acc2 = jnp.dot(g1, w2_q, precision=lax.Precision.HIGHEST) + b2_q
     v = acc2 * lax.stop_gradient(
         (jnp.float32(s_g1) * s_w2).reshape(-1))  # real units (s_out = 1)
-    gate = jnp.clip(v + jnp.float32(3.0), 0.0, 6.0) * jnp.float32(1.0 / 6.0)
+    gate = _v3.hsig_num(v) * jnp.float32(1.0 / 6.0)
     out = z * gate[:, None, None, :]
     return _ste(out, jnp.clip(jnp.round(out), -128, 127))
 

@@ -4,7 +4,7 @@ Scheme (mirrors FPGA fixed-point practice):
   - symmetric int8 everywhere, zero-point 0
   - activations: ReLU6 bounds every hidden activation to [0, 6], so hidden
     activation scales are FIXED at s = 6/127 — no data calibration needed
-    (the TPU analog of the reference's compile-time fixed-point formats).
+    (the analog of the reference's compile-time fixed-point formats).
     The preprocessed input lives in [-1, 1] -> s_in = 1/127.
   - weights: per-output-channel symmetric, s_w[oc] = max|w[..,oc]| / 127
   - bias: int32 in accumulator units, b_i32 = rint(b_f32 / (s_in * s_w[oc]))
@@ -58,10 +58,10 @@ def _quant_layer(w, b, out_axis, s_in, s_out, f32_bias_bound=False) -> QuantLaye
     bias_i32 = np.clip(
         np.rint(np.asarray(b, np.float32) / acc_scale), -(2**31) + 1, 2**31 - 1
     ).astype(np.int32)
-    # Exact-f32-integer precondition, DW LAYERS ONLY: the fused Pallas dw
-    # kernels add bias into the f32 tap accumulator
-    # (quant/pallas_block*_i8.py), which reproduces i32 bit-for-bit ONLY
-    # while every partial sum stays below 2^24 (tap sums <= 9*127*127).
+    # Exact-f32-integer precondition, DW LAYERS ONLY: the QAT graph adds
+    # the bias into the f32 tap accumulator (quant/qat.py), which
+    # reproduces i32 bit-for-bit ONLY while every partial sum stays below
+    # 2^24 (tap sums <= 9*127*127).
     # pw/fc/conv1 add bias in native int32 and carry no such bound. Guard
     # host-side, once, so a degenerate checkpoint (tiny weight scale -> huge
     # accumulator-unit bias) fails loudly instead of silently breaking the
@@ -131,25 +131,3 @@ def quantize_input(x_f32: np.ndarray) -> np.ndarray:
     return np.clip(np.rint(np.asarray(x_f32, np.float32) / ACT_IN_SCALE), -127, 127).astype(
         np.int8
     )
-
-
-def resolve_int8_fused(use_fused, batch: int, family: str = None) -> bool:
-    """Resolve an int8-family routing spec (bool | "auto") to a static bool
-    for one batch shape. Both int8 routes are bit-identical — this is a pure
-    schedule choice. "auto" = the measured v5e crossovers: fused wins every
-    throughput batch (2026-08-18 races, batch 256: V2 6,950 vs 1,929;
-    V3-Large 3,735 vs 1,858; V3-Small 10,516 vs 7,053 img/s — and far wider
-    after the round-4 kernels). Batch 1 is FAMILY-dependent since the
-    round-4 kernel work (2026-08-20 differenced-chain re-race): fused now
-    wins V3-Small 0.051 vs 0.121 ms and V2 0.207 vs 0.335 (the carriage +
-    packed-SE + bridge wins carry to latency), while V3-Large keeps xla
-    0.178 vs 0.191 (closer than the old 0.384/0.427 but still ahead).
-    Off-TPU resolves False (fused would run in interpret mode — the sw_emu
-    tier, not a performance candidate)."""
-    if use_fused == "auto":
-        import jax  # noqa: PLC0415 — keep module import jax-free
-
-        if jax.default_backend() != "tpu":
-            return False
-        return batch >= 2 or family in ("v2", "v3small")
-    return bool(use_fused)

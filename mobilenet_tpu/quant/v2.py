@@ -191,90 +191,6 @@ def forward_all_v2_i8(q: V2QuantizedParams, x_i8: np.ndarray,
 # device path (XLA route; exact twin of the oracle above)
 # ---------------------------------------------------------------------------
 
-# Trace-time knob: route eligible stride-2 expand blocks (b1 cin32, b3
-# cin64 at 1.0-224 — the two largest int8 segments after the head,
-# 9.8 + 5.0 of 35.2 ms/batch-256, benchmarks/v2_attr_raw.log 2026-08-20)
-# through the single fused named-act kernel quant/pallas_expand_s2_i8 —
-# the bf16 FUSED_EXPAND_S2 route's EXACT twin. V2's fixed-scale scheme maps
-# onto the named kernel with NO kernel change: a = m, inv_s = 1.0, and for
-# six_q == 127.0 exactly (the fixed 6/127 hidden scale: np.f32(6.0)/
-# np.f32(6/127) == 127.0) the named relu epilogue clip(rint(max(v,0)))
-# is BIT-IDENTICAL to the oracle's rint(min(max(v,0), six_q)) — for v >= 0,
-# rint(min(v,127)) == min(rint(v),127) case-by-case at the 126.5/127
-# boundaries; _six_ok gates the precondition per layer. The projection is
-# the named "linear" with inv_s = 1.0 (pre-fold: v*1.0 is an exact f32
-# identity; under quant/v3.FOLDED_REQUANT the kernel multiplies by
-# m = a*1.0 == a, the same bits — so the knob cannot move V2 numerics).
-# Unlike V3 (where this kernel lost to a two-stage packed route that V2's
-# E = 96-alpha widths can't take — 128 % 96 != 0), V2's fallback is the
-# rows-mode ir_i8 kernel at 112², measured 2x the bf16 twin.
-FUSED_EXPAND_S2_I8 = True
-# Restrict the int8 fused route to these block indices (None = every
-# eligible block) — the bf16 FUSED_EXPAND_S2_BLOCKS twin, A/B knob.
-# MEASURED (tools/ab_b1_fused.py --model v2 --int8, 1.0-224 batch 256,
-# 2026-08-20, exactness-gated): b1-only 9,698 img/s beats two_stage
-# 9,098 and b1+b3 8,920 — b3's cout 32->128 padding ripple (b4..b12)
-# loses int8 too, and harder (the padded lanes all pay requant passes).
-# The ripple is a channel effect, independent of resolution, so b3 is
-# excluded explicitly ({1} default) rather than left to the MIN_H gate —
-# which only happens to exclude it at standard resolutions (H=56 < 96)
-# and would re-enable the measured-loss arm at res >= 384.
-FUSED_EXPAND_S2_I8_BLOCKS = {1}
-# Minimum dw-input height — the MEASURED resolution crossover (same tool
-# at every standard res, 2026-08-20, b1-fused vs two_stage img/s):
-# res 96 (H48) 45,785 vs 49,316 LOSE; 128 (H64) 36,202 vs 39,973 LOSE;
-# 160 (H80) 18,997 vs 21,349 LOSE; 192 (H96) 16,401 vs 14,448 WIN;
-# 224 (H112) 9,698 vs 9,098 WIN — the same H>=96 law the bf16 route
-# measured (models/mobilenet_v2.FUSED_EXPAND_S2_MIN_H).
-FUSED_EXPAND_S2_I8_MIN_H = 96
-
-
-# bf16 integer carriage across the int8 V2 blocks — the V3 playbook
-# (quant/v3.CARRY_MIN_H, measured there 2026-08-18: int8 element windows in
-# the fused kernels cost up to 6x at big spatials; carriage took int8
-# V3-Large 1,858 -> 7,376 img/s). A block ACCEPTS a bf16-carried input when
-# its route stays exact with it (the ir kernel's expand dot needs the
-# bias bound; the XLA expand adds bias in i32 after the dot) and its input
-# spatial is >= this threshold; producers then emit bf16 (same integers).
-CARRY_MIN_H_V2 = 28
-
-
-def _carry_accepts_v2(dev, config: V2Config):
-    """Per-block bf16-carriage acceptance (len 17). Purely a routing plan:
-    every consumer route is exact for either carrier (with the in-route
-    int8 fallback cast when a bound fails), so a wrong accept costs perf,
-    never exactness. Block 0 (t=1, the packed route) stays int8."""
-    acc = []
-    h = config.resolution // 2
-    for (t, cin, cout, stride), blk in zip(config.block_defs,
-                                           dev["blocks"]):
-        acc.append(h >= CARRY_MIN_H_V2 and "exp" in blk
-                   and _bias_ok_i8(blk["exp"],
-                                   int(blk["exp"]["w"].shape[0])))
-        h //= stride
-    return acc
-
-
-def _six_ok(layer: Dict[str, Any]) -> bool:
-    """The named-relu == fixed-relu6 bit-equality precondition: rint(six_q)
-    must be 127 with six_q strictly inside (126.5, 127.5) — true exactly for
-    the fixed 6/127 hidden scale (six_q == 127.0); an imported checkpoint
-    with a recalibrated hidden scale falls back to the generic routes."""
-    s = float(layer["six_q"])
-    return 126.51 <= s <= 127.49
-
-
-def _bias_ok_i8(layer: Dict[str, Any], k_terms: int) -> bool:
-    """Exactness bound for a bf16-carried integer dot with k_terms nonzero
-    products per output: k_terms*127^2 + |bias_i32| < 2^24 keeps the f32
-    accumulator an exact integer (quant/v3._dot_bias_ok's twin; concrete
-    constants only — a traced tree returns False)."""
-    try:
-        bmax = int(np.abs(np.asarray(layer["b"])).max())
-    except Exception:
-        return False
-    return k_terms * 127 * 127 + bmax < 2 ** 24
-
 def _as_device_tree_v2(q: V2QuantizedParams) -> Dict[str, Any]:
     import jax.numpy as jnp
 
@@ -292,27 +208,13 @@ def _as_device_tree_v2(q: V2QuantizedParams) -> Dict[str, Any]:
 
 
 def forward_v2_i8(dev: Dict[str, Any], x_i8, config: V2Config, *,
-                  collect: bool = False,
-                  num_blocks: Optional[int] = None,
-                  use_fused: bool = False):
-    """INT8 V2 forward. Two routes, BIT-IDENTICAL by construction (both
-    are exact integer programs sharing the same constants):
-
-    - XLA ops (default; always-correct, the collect/oracle-tap route):
-      int8 MXU matmuls + exact-integer dw taps.
-    - use_fused=True: whole bottlenecks as single int8 Pallas kernels
-      (quant/pallas_ir_i8.py — expanded tensor never in HBM, activations
-      cross HBM at 1 byte/elem); per-block ir_i8_fits gates eligibility,
-      ineligible blocks (block 0's no-expand shape, VMEM-busting tiles)
-      stay on the XLA ops.
+                  collect: bool = False):
+    """INT8 V2 forward on XLA ops: int8 matmuls + exact-integer dw taps.
 
     x_i8: int8 at s_in = 1/127, or bfloat16 carrying the same integers
-    (quantize_input_dev; the fused blocks require int8 inputs — conv1's
-    requant output is int8 either way). Exactly equal to
-    forward_all_v2_i8 per layer / at the logits.
+    (quantize_input_dev). Exactly equal to forward_all_v2_i8 per layer and
+    at the logits.
     """
-    import jax.numpy as jnp
-
     from . import ops as qops
 
     relu6 = config.relu6
@@ -321,205 +223,10 @@ def forward_v2_i8(dev: Dict[str, Any], x_i8, config: V2Config, *,
     y = qops.conv1_i8(x_i8, c1["w"], c1["b"], c1["m"], c1["six_q"], relu6)
     if collect:
         acts["conv1"] = y
-    accepts = None
-    if use_fused and not collect:
-        from .pallas_ir_i8 import inverted_residual_pallas_i8, ir_i8_fits
-
-        accepts = _carry_accepts_v2(dev, config)
-
-    def _out_dt(i):
-        """Producer emits bf16 exactly when the NEXT block accepts it (the
-        tail conv_last always takes int8)."""
-        if accepts is not None and i + 1 < len(accepts) and accepts[i + 1]:
-            return jnp.bfloat16
-        return jnp.int8
-
     for i, ((t, cin, cout, stride), blk) in enumerate(
             zip(config.block_defs, dev["blocks"])):
-        if num_blocks is not None and i >= num_blocks:
-            return y
-        cin_a = int(y.shape[-1])
-        # Widened-input discipline (the bf16 run_blocks_v2 twin): a packed
-        # producer widens the activation with EXACT-ZERO channels; pad the
-        # consumer's expand rows (zero int8 rows contribute nothing) and,
-        # for residual blocks, the projection cols (zero w/b/m -> the
-        # linear requant emits exact zeros, and the residual adds the
-        # producer's zero lanes) — logits unchanged.
-        if "exp" in blk and int(blk["exp"]["w"].shape[0]) < cin_a:
-            blk = dict(blk, exp=dict(blk["exp"], w=jnp.pad(
-                blk["exp"]["w"], ((0, cin_a - int(blk["exp"]["w"].shape[0])),
-                                  (0, 0)))))
-        cout_a = int(blk["prj"]["w"].shape[1])
-        if stride == 1 and cin == cout and cout_a < cin_a:
-            blk = dict(blk, prj=dict(
-                blk["prj"],
-                w=jnp.pad(blk["prj"]["w"], ((0, 0), (0, cin_a - cout_a))),
-                b=jnp.pad(blk["prj"]["b"], (0, cin_a - cout_a)),
-                m=jnp.pad(blk["prj"]["m"], (0, cin_a - cout_a))))
-            cout_a = cin_a
-        if (use_fused and not collect and "exp" not in blk and stride == 1
-                and cin_a < 128 and 128 % cin_a == 0
-                and (int(y.shape[2]) * cin_a) % 128 == 0):
-            # t == 1 (block 0): lane-packed int8 route with the LINEAR pw
-            # epilogue — the XLA int8 fallback here cost 12.4 ms/batch-256
-            # at 1.0-224 vs bf16's packed 2.36 (2026-08-18 attribution,
-            # v3_campaign_raw.log). Cout pads up to a Cin multiple with
-            # ZERO channels (w/b/m = 0 -> exact zero lanes); the pads are
-            # in-graph constants (folded at compile) and the next block's
-            # expansion rows pad to consume them — logits unchanged.
-            d, p = blk["dw"], blk["prj"]
-            cout_a = int(p["w"].shape[1])
-            coutp = -(-cout_a // cin_a) * cin_a
-            if ((128 // cin_a) * coutp) % 128 == 0 and cin != cout:
-                pw_w, pw_b, pw_m = p["w"], p["b"], p["m"]
-                if coutp != cout_a:
-                    pw_w = jnp.pad(pw_w, ((0, 0), (0, coutp - cout_a)))
-                    pw_b = jnp.pad(pw_b, (0, coutp - cout_a))
-                    pw_m = jnp.pad(pw_m, (0, coutp - cout_a))
-                from ..ops.pallas_block_packed import (  # noqa: PLC0415
-                    pack, unpack)
-                from .pallas_block_packed_i8 import (  # noqa: PLC0415
-                    separable_block_packed_i8)
-
-                yp = separable_block_packed_i8(
-                    pack(y, cin_a), d["w"], d["b"], d["m"],
-                    pw_w, pw_b, pw_m, cin_a, coutp, 1,
-                    d["six_q"], 0.0, relu6, pw_linear=True)
-                y = unpack(yp, coutp)
-                continue
-        if (FUSED_EXPAND_S2_I8 and use_fused and not collect
-                and (FUSED_EXPAND_S2_I8_BLOCKS is None
-                     or i in FUSED_EXPAND_S2_I8_BLOCKS)
-                and int(y.shape[1]) >= FUSED_EXPAND_S2_I8_MIN_H
-                and "exp" in blk and stride == 2
-                and cin_a < 128 and 128 % cin_a == 0
-                and (int(y.shape[2]) * cin_a) % 128 == 0
-                and int(y.shape[1]) % 2 == 0 and int(y.shape[2]) % 2 == 0):
-            e, d, p = blk["exp"], blk["dw"], blk["prj"]
-            e_a = int(e["w"].shape[1])
-            r2 = (128 // cin_a) // 2
-            cm = 128 // r2 if r2 else 0
-            cout_p = -(-cout_a // cm) * cm if cm else 0
-            e_p = -(-e_a // cm) * cm if cm else 0  # zero-pad E (exact)
-            from ..ops.pallas_expand_s2 import expand_s2_eligible  # noqa: PLC0415
-
-            if (r2 and expand_s2_eligible(cin_a, e_p, cout_p, int(y.shape[2]))
-                    and _six_ok(e) and _six_ok(d)
-                    and _bias_ok_i8(e, cin_a) and _bias_ok_i8(d, 9)
-                    and _bias_ok_i8(p, e_a)):
-                # Single fused expand+dw-s2+prj kernel on V2's constants
-                # (module knob above — the scheme mapping a = m, inv = 1.0
-                # and its bit-equality argument). Padded E lanes and Cout
-                # cols carry zero w/b/m -> exact zeros; consumers pad to
-                # match (the loop-top discipline).
-                from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-                from .pallas_expand_s2_i8 import (  # noqa: PLC0415
-                    expand_block_packed_s2_i8)
-
-                de, dc = e_p - e_a, cout_p - cout_a
-                ew = jnp.pad(e["w"], ((0, 0), (0, de)))
-                eb = jnp.pad(e["b"], (0, de))
-                em = jnp.pad(e["m"], (0, de))
-                dww = jnp.pad(d["w"], ((0, 0), (0, 0), (0, 0), (0, de)))
-                dwb = jnp.pad(d["b"], (0, de))
-                dwm = jnp.pad(d["m"], (0, de))
-                pw = jnp.pad(p["w"], ((0, de), (0, dc)))
-                pb = jnp.pad(p["b"], (0, dc))
-                pm = jnp.pad(p["m"], (0, dc))
-                yb = y if y.dtype == jnp.bfloat16 else y.astype(jnp.bfloat16)
-                out = expand_block_packed_s2_i8(
-                    pack(yb, cin_a), ew, eb, em, dww, dwb, dwm, pw, pb, pm,
-                    cin_a, "relu", 1.0, 1.0, 1.0,
-                    out_dtype=jnp.dtype(_out_dt(i)).name)
-                y = out.reshape(out.shape[0], out.shape[1], -1, cout_p)
-                continue
-        if (use_fused and not collect and "exp" in blk
-                and not ir_i8_fits(int(y.shape[0]), int(y.shape[1]),
-                                   int(y.shape[2]), int(y.shape[-1]),
-                                   int(blk["exp"]["w"].shape[1]),
-                                   int(blk["prj"]["w"].shape[1]), stride)):
-            # Block busts the V2 ir kernel's plan (b13 at 1.0-224: 14² s2
-            # with h_out*w_out = 49 odd — the sublane-rule class) — bridge
-            # onto the NAMED V3 kernel, which has the wpad mode that took
-            # int8 V3-Large's block 12 from 10.2 to 0.8 ms. V2's fixed-
-            # scale scheme maps as a = m, inv_s = 1.0 (the fused-s2
-            # route's documented bit-equality argument, gated by _six_ok);
-            # the projection is named "linear" with v*1.0 an exact f32
-            # identity. Paired attribution 2026-08-20: the b13..head
-            # segment carries +2.24 ms of V2's +8.0 int8-vs-bf16 gap.
-            from .pallas_ir_v3_i8 import (  # noqa: PLC0415
-                v3_block_pallas_i8, v3_i8_fits)
-
-            e, d, p = blk["exp"], blk["dw"], blk["prj"]
-            e_a = int(e["w"].shape[1])
-            res = stride == 1 and cin == cout
-            if (v3_i8_fits(int(y.shape[0]), int(y.shape[1]),
-                           int(y.shape[2]), cin_a, e_a, cout_a, 3, stride)
-                    and _six_ok(e) and _six_ok(d)
-                    and _bias_ok_i8(e, cin_a)):
-                named = lambda l: {"w": l["w"], "b": l["b"],  # noqa: E731
-                                   "a": l["m"], "inv_s": 1.0}
-                y = v3_block_pallas_i8(
-                    y, named(e), named(d), named(p), k=3, stride=stride,
-                    act="relu", residual=res, out_dtype=_out_dt(i))
-                continue
-        if (use_fused and not collect and "exp" in blk
-                and ir_i8_fits(int(y.shape[0]), int(y.shape[1]),
-                               int(y.shape[2]), int(y.shape[-1]),
-                               int(blk["exp"]["w"].shape[1]),
-                               int(blk["prj"]["w"].shape[1]), stride)):
-            e, d, p = blk["exp"], blk["dw"], blk["prj"]
-            e_w = e["w"]
-            if cin_a > int(e_w.shape[0]):
-                # consume block 0's zero-channel projection padding:
-                # zero expansion rows contribute nothing — exact.
-                e_w = jnp.pad(e_w, ((0, cin_a - int(e_w.shape[0])), (0, 0)))
-            if y.dtype == jnp.bfloat16 and not _bias_ok_i8(e, cin_a):
-                # defensive: the bf16 expand dot's exactness bound fails
-                # for this block's constants — take the s8 dot instead
-                # (accepts[] already avoids emitting bf16 here)
-                y = y.astype(jnp.int8)
-            y = inverted_residual_pallas_i8(
-                y, e_w, e["b"], e["m"], e["six_q"],
-                d["w"], d["b"], d["m"], d["six_q"],
-                p["w"], p["b"], p["m"], stride,
-                stride == 1 and cin == cout, out_dtype=_out_dt(i))
-            continue
-        z = y
-        if "exp" in blk:
-            e = blk["exp"]
-            e_w = e["w"]
-            if cin_a > int(e_w.shape[0]):
-                e_w = jnp.pad(e_w, ((0, cin_a - int(e_w.shape[0])), (0, 0)))
-            z = _pointwise_i8_carrier(z, e_w, e["b"], e["m"], e["six_q"],
-                                      relu6)
-            if collect:
-                acts[f"block{i:02d}_exp"] = z
-        elif z.dtype == jnp.bfloat16:
-            z = z.astype(jnp.int8)  # t=1 fallback: dw reads either, but
-            # keep the oracle path byte-stable for the residual below
-        d = blk["dw"]
-        z = qops.depthwise_i8_xla(z, d["w"], d["b"], d["m"], d["six_q"],
-                                  stride, relu6)
-        if collect:
-            acts[f"block{i:02d}_dw"] = z
-        p = blk["prj"]
-        out = _pw_i8_linear_dev(z, p["w"], p["b"], p["m"],
-                                out_dtype=None if (stride == 1
-                                                   and cin == cout)
-                                else _out_dt(i) if accepts is not None
-                                else None)
-        if collect:
-            acts[f"block{i:02d}_prj"] = out
-        if stride == 1 and cin == cout:
-            out = jnp.clip(out.astype(jnp.int32) + y.astype(jnp.int32),
-                           -128, 127).astype(
-                _out_dt(i) if accepts is not None else jnp.int8)
-            if collect:
-                acts[f"block{i:02d}_out"] = out
-        y = out
-    if num_blocks is not None:
-        return y
+        y = block_v2_i8(blk, y, stride, stride == 1 and cin == cout, relu6,
+                        acts if collect else None, f"block{i:02d}")
     cl = dev["conv_last"]
     y = qops.pointwise_i8(y, cl["w"], cl["b"], cl["m"], cl["six_q"], relu6)
     if collect:
@@ -535,9 +242,40 @@ def forward_v2_i8(dev: Dict[str, Any], x_i8, config: V2Config, *,
     return logits
 
 
-def _pw_i8_linear_dev(x_i8, w_i8, bias_i32, m, out_dtype=None):
-    """Linear pointwise requant on the MXU (device twin of pw_i8_linear).
-    out_dtype int8 (default) or bfloat16 — identical integers either way."""
+def block_v2_i8(blk, y, stride: int, has_res: bool, relu6: bool = True,
+                acts: Optional[Dict[str, Any]] = None, name: str = ""):
+    """One int8 bottleneck on XLA ops (device twin of the oracle's block):
+    expand (when present), dw, linear projection, saturating residual add.
+    `acts` collects the taps {name}_exp/_dw/_prj/_out."""
+    import jax.numpy as jnp
+
+    from . import ops as qops
+
+    def tap(kind, v):
+        if acts is not None:
+            acts[f"{name}_{kind}"] = v
+
+    z = y
+    if "exp" in blk:
+        e = blk["exp"]
+        z = qops.pointwise_i8(z, e["w"], e["b"], e["m"], e["six_q"], relu6)
+        tap("exp", z)
+    d = blk["dw"]
+    z = qops.depthwise_i8_xla(z, d["w"], d["b"], d["m"], d["six_q"], stride,
+                              relu6)
+    tap("dw", z)
+    p = blk["prj"]
+    out = _pw_i8_linear_dev(z, p["w"], p["b"], p["m"])
+    tap("prj", out)
+    if has_res:
+        out = jnp.clip(out.astype(jnp.int32) + y.astype(jnp.int32),
+                       -128, 127).astype(jnp.int8)
+        tap("out", out)
+    return out
+
+
+def _pw_i8_linear_dev(x_i8, w_i8, bias_i32, m):
+    """Linear pointwise requant (device twin of pw_i8_linear)."""
     import jax.numpy as jnp
     from jax import lax
 
@@ -549,31 +287,8 @@ def _pw_i8_linear_dev(x_i8, w_i8, bias_i32, m, out_dtype=None):
         preferred_element_type=jnp.int32,
     ) + bias_i32[None, :]
     v = acc.astype(jnp.float32) * m.astype(jnp.float32)
-    out = jnp.clip(jnp.round(v), -128, 127).astype(out_dtype or jnp.int8)
+    out = jnp.clip(jnp.round(v), -128, 127).astype(jnp.int8)
     return out.reshape(n, h, w, cout)
-
-
-def _pointwise_i8_carrier(z, w_i8, bias_i32, m, six_q, relu6):
-    """qops.pointwise_i8 for either activation carrier: a bf16-carried
-    input runs a bf16 MXU dot with f32 accumulation and the bias added in
-    int32 AFTER (exact while cin * 127^2 < 2^24 — every V2 width; no bias
-    bound needed), then the identical requant — bit-equal to the s8 path."""
-    import jax.numpy as jnp
-    from jax import lax
-
-    from . import ops as qops
-
-    if z.dtype == jnp.int8:
-        return qops.pointwise_i8(z, w_i8, bias_i32, m, six_q, relu6)
-    n, h, w, cin = z.shape
-    acc = lax.dot_general(
-        z.reshape(n * h * w, cin).astype(jnp.bfloat16),
-        w_i8.astype(jnp.bfloat16),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
-    acc = acc + bias_i32[None, :]
-    return qops.requantize(acc, m, six_q, relu6).reshape(
-        n, h, w, w_i8.shape[1])
 
 
 def verify_int8_v2(config: V2Config, folded: Dict[str, Any],
@@ -609,27 +324,21 @@ def verify_int8_v2(config: V2Config, folded: Dict[str, Any],
     return ok
 
 
-def make_int8_infer_v2(q: V2QuantizedParams, config: V2Config,
-                       use_fused="auto"):
+def make_int8_infer_v2(q: V2QuantizedParams, config: V2Config):
     """Compiled int8 V2 entry: uint8 images -> float32 logits (preprocess +
-    input quantization fused into the program, mirroring make_int8_infer).
-    use_fused: bool | "auto" — resolved per traced batch shape
-    (quantize.resolve_int8_fused, the measured v5e crossover)."""
+    input quantization fused into the program, mirroring make_int8_infer)."""
     import jax
     import jax.numpy as jnp
 
     from ..ops import preprocess as prep
     from . import ops as qops
-    from .quantize import resolve_int8_fused
 
     dev = _as_device_tree_v2(q)
 
     def infer(images_u8):
         x = prep.preprocess(images_u8, config.resolution, jnp.float32)
-        x_q = qops.quantize_input_dev(x, ACT_IN_SCALE, out_dtype=jnp.bfloat16)
-        fused = resolve_int8_fused(use_fused, int(images_u8.shape[0]),
-                                   family="v2")
-        return forward_v2_i8(dev, x_q, config, use_fused=fused)
+        x_q = qops.quantize_input_dev(x, ACT_IN_SCALE)
+        return forward_v2_i8(dev, x_q, config)
 
     return jax.jit(infer), dev
 
@@ -643,21 +352,14 @@ class Int8PipelineV2:
     quantized constants are replicated like the float pipeline's weights."""
 
     def __init__(self, config: V2Config, *, seed: int = 0, params=None,
-                 mesh=None, use_fused="auto"):
+                 mesh=None):
         import jax
         import jax.numpy as jnp
 
         from ..checkpoints.v2 import fold_bn_v2, init_params_v2
         from ..ops import preprocess as prep
         from . import ops as qops
-        from .quantize import resolve_int8_fused
 
-        # use_fused routes eligible bottlenecks through the int8 IR Pallas
-        # kernel (pallas_ir_i8.py; logits bit-identical to the XLA route).
-        # bool | "auto" (default): the measured v5e crossover — xla at
-        # batch 1, fused from batch 2 (resolve_int8_fused; raced by
-        # `cli autotune --model v2 --int8`, 2026-08-18 chip campaign).
-        self.use_fused = use_fused
         self.config = config
         if mesh is not None:
             from ..runtime.pipeline import _require_dp_only_mesh
@@ -681,15 +383,10 @@ class Int8PipelineV2:
         self._dev = dev
         cfg = config
 
-        spec = self.use_fused
-
         def probs(images_u8):
             x = prep.preprocess(images_u8, cfg.resolution, jnp.float32)
-            x_q = qops.quantize_input_dev(x, ACT_IN_SCALE,
-                                          out_dtype=jnp.bfloat16)
-            fused = resolve_int8_fused(spec, int(images_u8.shape[0]),
-                                       family="v2")
-            logits = forward_v2_i8(dev, x_q, cfg, use_fused=fused)
+            x_q = qops.quantize_input_dev(x, ACT_IN_SCALE)
+            logits = forward_v2_i8(dev, x_q, cfg)
             return jax.nn.softmax(logits, axis=-1)
 
         self._probs = jax.jit(probs)

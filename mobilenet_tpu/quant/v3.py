@@ -15,8 +15,8 @@ files' boundary message pointed at:
     the same f32 op order with the same float32 constants. The canonical
     (FOLDED_REQUANT, round-5) order folds the two scale multiplies into
     ONE precomputed per-channel multiplier — V1/V2's single-`m` design
-    (quant/ops.requantize), which the round-4 VPU anchors showed costs a
-    full-width VPU pass per extra op:
+    (quant/ops.requantize), one full-width elementwise pass fewer per
+    requant:
       relu:   m  = f32(a) * f32(inv_s);  q = clamp(rint(acc*m),    0, 127)
       linear: m  = f32(a) * f32(inv_s);  q = clamp(rint(acc*m), -128, 127)
       hswish: v  = f32(acc) * a[oc]      (real units — needed for the gate)
@@ -33,7 +33,7 @@ files' boundary message pointed at:
     activations, with the oracle twin pinning the bit pattern.
   - The SE gate is quantized so its matmuls stay ORDER-INDEPENDENT
     integer arithmetic (f32 matmuls would break exactness — accumulation
-    order differs between MXU and NumPy): pooled rides the dw scale
+    order differs between device and NumPy): pooled rides the dw scale
     (exact int sum, one f32 mean, rint), both SE convs are int8 with
     int32 accumulation, the mid activation gets its own calibrated scale,
     and only the final hard-sigmoid + channel scale are elementwise f32.
@@ -43,12 +43,8 @@ files' boundary message pointed at:
     exact (25 * 127^2 + bias << 2^24); the bias-bound guard scales with
     k^2.
 
-Device path: XLA ops (int8 MXU matmuls, exact-f32-integer dw taps, the
-conv1_i8 bf16-conv trick for the stem) AND the fused int8 kernels —
-pallas_ir_v3_i8 per-block, the packed named-act family
-(pallas_block_packed_i8), and the expand-s2 twin (pallas_expand_s2_i8) —
-routed per measured per-block plans (design.md §8); `forward_v3_i8`
-dispatches, fused-vs-xla EXACT gated on chip at the shipping batch.
+Device path: XLA ops (int8 matmuls, exact-f32-integer dw taps, and the
+exact float32 stem conv of quant/ops.conv3x3_s2_acc).
 """
 
 from __future__ import annotations
@@ -62,13 +58,12 @@ from ..models.mobilenet_v3 import V3Config
 from ..oracle import numpy_ref
 from .quantize import ACT_IN_SCALE, _quant_weight
 
-# Round-5 canonical requant order: ONE precomputed multiplier for
-# relu/linear (m = f32(a)*f32(inv_s)) and a folded m6 = inv_s/6 for
-# hswish — saves one full-width VPU pass per named requant vs the
-# two-mul order (module docstring). The ORACLE and every kernel twin
-# read this same knob, so each setting is a complete, self-consistent
-# scheme gated EXACT end to end; kernels thread it as a static (the
-# EO_EXPAND pattern) so tools/abx.py can race the two orders e2e.
+# Canonical requant order: ONE precomputed multiplier for relu/linear
+# (m = f32(a)*f32(inv_s)) and a folded m6 = inv_s/6 for hswish — one
+# elementwise multiply fewer per named requant than the two-mul order
+# (module docstring). The oracle, the device path and QAT read this same
+# knob, so each setting is a complete, self-consistent scheme gated EXACT
+# end to end.
 FOLDED_REQUANT = True
 
 # ---------------------------------------------------------------------------
@@ -382,34 +377,45 @@ def _as_device_tree_v3(q: V3QuantizedParams) -> Dict[str, Any]:
     }
 
 
-def _requant_named_dev(acc_i32, a, inv_s, act, out_dtype=None, fold=None):
-    """out_dtype int8 (default) or bfloat16 — the carrier holds the SAME
-    integers either way (|q| <= 127 is exact in bf16's 8-bit mantissa).
-    fold=None reads FOLDED_REQUANT at trace time (module docstring)."""
+def hsig_num(v):
+    """clip(v + 3, 0, 6) on the device, equal bit for bit to the oracle's
+    expression for every float32 v, with the clamp BEFORE the add: when v is
+    itself a product (acc * a), a GPU backend may fuse `v + 3` with that
+    multiply into one FMA, which rounds once where the oracle rounds twice
+    and breaks int8 exactness. A clamp between them leaves nothing to fuse.
+    (v in [-3, 3]: the same add; v > 3: both give 6; v < -3: both give 0.)"""
     import jax.numpy as jnp
 
-    if FOLDED_REQUANT if fold is None else fold:
+    return jnp.clip(v, jnp.float32(-3.0), jnp.float32(3.0)) + jnp.float32(3.0)
+
+
+def _requant_named_dev(acc_i32, a, inv_s, act):
+    """Device twin of _requant_named_np; reads FOLDED_REQUANT at trace
+    time (module docstring)."""
+    import jax.numpy as jnp
+
+    if FOLDED_REQUANT:
         if act == "hswish":
             v = acc_i32.astype(jnp.float32) * a.astype(jnp.float32)
-            t = jnp.clip(v + jnp.float32(3.0), 0.0, 6.0)
+            t = hsig_num(v)
             q = jnp.round(
                 (v * t) * (jnp.float32(inv_s) * jnp.float32(1.0 / 6.0)))
-            return jnp.clip(q, -128, 127).astype(out_dtype or jnp.int8)
+            return jnp.clip(q, -128, 127).astype(jnp.int8)
         assert act in ("relu", "linear"), act
         m = a.astype(jnp.float32) * jnp.float32(inv_s)
         q = jnp.round(acc_i32.astype(jnp.float32) * m)
         lo = jnp.float32(0.0) if act == "relu" else -128
-        return jnp.clip(q, lo, 127).astype(out_dtype or jnp.int8)
+        return jnp.clip(q, lo, 127).astype(jnp.int8)
     v = acc_i32.astype(jnp.float32) * a.astype(jnp.float32)
     if act == "relu":
         v = jnp.maximum(v, jnp.float32(0.0))
     elif act == "hswish":
-        g = jnp.clip(v + jnp.float32(3.0), 0.0, 6.0) * jnp.float32(1.0 / 6.0)
+        g = hsig_num(v) * jnp.float32(1.0 / 6.0)
         v = v * g
     else:
         assert act == "linear", act
     q = jnp.round(v * jnp.float32(inv_s))  # round-half-even == np.rint
-    return jnp.clip(q, -128, 127).astype(out_dtype or jnp.int8)
+    return jnp.clip(q, -128, 127).astype(jnp.int8)
 
 
 def _pw_acc_dev(x_i8, w_i8, bias_i32):
@@ -427,15 +433,11 @@ def _pw_acc_dev(x_i8, w_i8, bias_i32):
 def _dwk_acc_dev(x_i8, w_i8, stride, k):
     """k-tap f32 integer dw accumulation (exact: each product <= 127^2 is
     exact in f32 and the k^2-tap partial sums stay below 2^24 in any order;
-    the depthwise_i8_xla argument, k-generalized). The input may carry int8
-    OR bf16 (same integers — both cast exactly to f32).
+    the depthwise_i8_xla argument, k-generalized).
 
-    Stride 2 uses an EVEN/ODD parity split: the naive form's 9 stride-2
-    slices are sublane-strided relayouts — the measured 4x-worse pattern
-    (design.md SS3) that made V3-Small's unfused b0 cost 8.08 ms at 112²
-    (2026-08-20 attribution). Splitting the padded input into its four
-    (row, col) parity planes once turns every tap into a DENSE slice of one
-    plane: out(i,j) = sum xp[2i+dy, 2j+dx] w[dy,dx] and the plane
+    Stride 2 splits the padded input into its four (row, col) parity planes
+    once, so every tap is a dense slice of one plane instead of a strided
+    one: out(i,j) = sum xp[2i+dy, 2j+dx] w[dy,dx] and the plane
     (dy%2, dx%2) holds xp[2i+dy] at row i + dy//2."""
     import jax.numpy as jnp
 
@@ -471,6 +473,24 @@ def _dwk_acc_dev(x_i8, w_i8, stride, k):
     return acc.astype(jnp.int32)
 
 
+def _se_acc_dev(x_i8, w_i8, bias_i32):
+    """The SE gate's (N, C) x (C, Cr) integer matmul, accumulated in float32
+    at HIGHEST precision: operands |v| <= 127 are exact in float32, products
+    <= 127^2 too, and sums over C * 127^2 < 2^24 hold the exact integer in
+    any order. On the GPU an s8 x s8 -> s32 dot this small, fused with its
+    neighbours, returned wrong sums (V3-Small block 0, PERF.md); the float32
+    form leaves no integer GEMM to fuse. Wider contractions keep the int8
+    dot."""
+    import jax.numpy as jnp
+    from jax import lax
+
+    if int(w_i8.shape[0]) * 127 * 127 >= 2 ** 24:
+        return _pw_acc_dev(x_i8, w_i8, bias_i32)
+    acc = jnp.dot(x_i8.astype(jnp.float32), w_i8.astype(jnp.float32),
+                  precision=lax.Precision.HIGHEST)
+    return acc.astype(jnp.int32) + bias_i32
+
+
 def _se_i8_dev(z_i8, se1, se2):
     import jax.numpy as jnp
 
@@ -479,449 +499,37 @@ def _se_i8_dev(z_i8, se1, se2):
     pooled = jnp.clip(jnp.round(sum32.astype(jnp.float32)
                                 * jnp.float32(1.0 / hw)),
                       -128, 127).astype(jnp.int8)
-    g1 = _requant_named_dev(_pw_acc_dev(pooled, se1["w"], se1["b"]),
+    g1 = _requant_named_dev(_se_acc_dev(pooled, se1["w"], se1["b"]),
                             se1["a"], se1["inv_s"], "relu")
-    acc2 = _pw_acc_dev(g1, se2["w"], se2["b"])
+    acc2 = _se_acc_dev(g1, se2["w"], se2["b"])
     v = acc2.astype(jnp.float32) * se2["a"].astype(jnp.float32)
-    gate = jnp.clip(v + jnp.float32(3.0), 0.0, 6.0) * jnp.float32(1.0 / 6.0)
+    gate = hsig_num(v) * jnp.float32(1.0 / 6.0)
     out = jnp.round(z_i8.astype(jnp.float32) * gate[:, None, None, :])
     return jnp.clip(out, -128, 127).astype(jnp.int8)
 
 
-# Carry bf16 into fused blocks whose input spatial is >= this. Measured on
-# chip (tools/ab_v3_carry.py, Large-224 batch 256, interleaved, all
-# candidates logit-EXACT): 56 -> 9,647 img/s, 28 -> 9,853 (+0.55 ms/batch,
-# the 28² SE blocks' int8 element windows), 14/7 a wash vs 28.
-CARRY_MIN_H = 28
-
-
-def _fused_plan_v3(dev, config: V3Config, n: int):
-    """Static per-block plan for the fused int8 route, decided at trace
-    time (the pipelines close over a concrete device tree).
-
-    Returns (conv1_dtype, [(fused, in_dtype, out_dtype)]). Carriage: a
-    block's activations ride bfloat16 (same integers — the V1 trick,
-    quant/model.py) into the NEXT block when that consumer is fused and
-    its input spatial is >= CARRY_MIN_H: int8 4D element windows lower to
-    per-step relayouts that measured 6x slower than the bf16 geometry at
-    112² (30.7 vs 5.1 ms for block 1 at Large-224 batch 256, 2026-08-18
-    attribution), while small-spatial whole-image tiles measured the
-    widen as free on V1 (design.md §5, ab_carry). Exactness of the bf16
-    expand dot needs |dot + bias| < 2^24 (pallas_ir_v3_i8._exp_dot);
-    carriage into a block is dropped if its expand bias busts the bound.
-    No-expand blocks fuse via the identity expansion (exact for either
-    carrier)."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from .pallas_ir_v3_i8 import v3_i8_fits
-
-    h = config.resolution // 2  # conv1 is stride 2
-    fused, accepts = [], []
-    for bd, blk in zip(config.block_defs, dev["blocks"]):
-        if "exp" in blk:
-            cin = int(blk["exp"]["w"].shape[0])
-            e = int(blk["exp"]["w"].shape[1])
-        else:
-            cin = e = int(blk["dw"]["w"].shape[-1])
-        fit = v3_i8_fits(n, h, h, cin, e, int(blk["prj"]["w"].shape[1]),
-                         bd.kernel, bd.stride, bd.se_mid)
-        if fit:
-            acc = h >= CARRY_MIN_H
-            if acc and "exp" in blk:
-                try:
-                    bmax = int(np.abs(np.asarray(blk["exp"]["b"])).max())
-                    acc = bmax <= 2 ** 24 - 2 * cin * 127 * 127
-                except Exception:  # traced tree (no concrete values)
-                    acc = False
-        else:
-            # The unfused XLA fallback also accepts a bf16 carrier: its
-            # expand runs as a bf16 MXU dot with the bias added in int32
-            # AFTER (exact while cin * 127^2 < 2^24 — every V3 width
-            # qualifies), and the dw f32 tap loop casts to f32 either way.
-            # Reading bf16 skips the int8 relayout read at the big spatial
-            # — V3-Small's b0/b1 paid +15 ms for int8 carriage across this
-            # seam (2026-08-20 attribution). The CARRY_MIN_H spatial gate
-            # still applies: below it the ab_carry races measured bf16
-            # carriage a wash-to-loss, and every shipped non-fit block is
-            # large-spatial anyway (round-4 review finding).
-            acc = h >= CARRY_MIN_H and cin * 127 * 127 < 2 ** 24
-        fused.append(fit)
-        accepts.append(acc)
-        h = h // bd.stride
-    # a producer emits bf16 exactly when its consumer block accepts it —
-    # FUSED OR NOT: the fused kernel takes out_dtype, the XLA fallback's
-    # final requant/residual-add casts either way, and conv1's requant just
-    # casts differently. Identical integers in either carrier.
-    conv1_dtype = jnp.bfloat16 if accepts and accepts[0] else jnp.int8
-    plan = []
-    for i, fit in enumerate(fused):
-        nxt = accepts[i + 1] if i + 1 < len(fused) else False
-        out_dt = jnp.bfloat16 if nxt else jnp.int8
-        in_dt = conv1_dtype if i == 0 else plan[i - 1][2]
-        plan.append((fit, in_dt, out_dt))
-    return conv1_dtype, plan
-
-
-# Trace-time knob for the int8 packed-expand stride-2 route (the float
-# route's twin, models/mobilenet_v3.PACKED_EXPAND_S2); A/B tools flip it.
-PACKED_EXPAND_S2_I8 = True
-# Single-kernel named-act fused expand+dw-s2+prj (quant/pallas_expand_s2_i8
-# — the bf16 FUSED_EXPAND_S2 route's EXACT twin). MEASURED OUT e2e on v5e
-# (tools/ab_b1_fused.py --int8, Large-224 batch 256, 2026-08-19): 12,131 ->
-# 10,742 img/s — unlike the bf16 kernel (whose plain relu rides the dw FMA
-# epilogue), the int8 twin pays a full named-requant pass (mul, round,
-# clip) per TAP at the expanded width, 3x the two-stage route's single
-# requant. Ships OFF; kept as a tested option (kernel + exactness tests).
-FUSED_EXPAND_S2_I8 = False
-
-
-def _dot_bias_ok(layer, k_terms: int) -> bool:
-    """Exactness bound for a bf16-carried integer dot with k_terms nonzero
-    products per output: k_terms*127² + |bias_i32| < 2^24 keeps the f32
-    accumulator an exact integer. Checked against CONCRETE quantized
-    constants; a traced tree returns False (no packed route)."""
-    import numpy as np
-
-    try:
-        bmax = int(np.abs(np.asarray(layer["b"])).max())
-    except Exception:
-        return False
-    return k_terms * 127 * 127 + bmax < 2 ** 24
-
-
-def _pw_acc_carrier_dev(z, w_i8, bias_i32):
-    """Pointwise int accumulation for either carrier: int8 -> the native
-    s8xs8->s32 MXU dot; bf16-carried ints -> a bf16 MXU dot with f32
-    accumulation (|x|,|w| <= 127 exact in bf16, products <= 16129 exact in
-    f32, partial sums < cin * 127^2 < 2^24 for every V3 width), bias added
-    in int32 AFTER the dot so no bias bound is needed — bit-identical
-    integers either way (the conv1_i8 argument, quant/ops.py)."""
-    import jax.numpy as jnp
-    from jax import lax
-
-    if z.dtype == jnp.int8:
-        return _pw_acc_dev(z, w_i8, bias_i32)
-    shp = z.shape
-    acc = lax.dot_general(
-        z.reshape(-1, shp[-1]).astype(jnp.bfloat16),
-        w_i8.astype(jnp.bfloat16),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
-    acc = acc + bias_i32[None, :]
-    return acc.reshape(shp[:-1] + (w_i8.shape[1],))
-
-
-def _xla_block_v3_i8(z, bd, blk, out_dtype=None):
-    """One bottleneck on the exact XLA ops (the unfused sequence, no
-    collect taps) — the fallback when a block doesn't fit the fused
-    kernel's VMEM plan. Accepts either activation carrier (int8, or bf16
-    holding the same integers) and emits `out_dtype` (default int8) so
-    bf16 carriage rides ACROSS unfused blocks: V3-Small's b0 fallback at
-    112² previously forced int8 into fused b1, costing the 6x element-
-    window relayout there (2026-08-20 attribution)."""
-    import jax.numpy as jnp
-
-    x_in = z
-    if bd.has_expand:
-        e = blk["exp"]
-        z = _requant_named_dev(_pw_acc_carrier_dev(z, e["w"], e["b"]),
-                               e["a"], e["inv_s"], bd.act)
-    d = blk["dw"]
-    z = _requant_named_dev(
-        _dwk_acc_dev(z, d["w"], bd.stride, bd.kernel) + d["b"],
-        d["a"], d["inv_s"], bd.act)
-    if bd.se_mid:
-        z = _se_i8_dev(z, blk["se1"], blk["se2"])
-    p = blk["prj"]
-    out = _requant_named_dev(_pw_acc_dev(z, p["w"], p["b"]),
-                             p["a"], p["inv_s"], "linear",
-                             out_dtype=None if bd.has_res else out_dtype)
-    if bd.has_res:
-        out = jnp.clip(out.astype(jnp.int32) + x_in.astype(jnp.int32),
-                       -128, 127).astype(out_dtype or jnp.int8)
-    return out
-
-
-def _packed_bias_ok(blk, cin: int) -> bool:
-    """Exactness bound for the packed route's bf16 projection dot:
-    |block-diag dot| <= cin*127^2, so the f32 sum with the bias stays an
-    exact integer while cin*127^2 + |b| < 2^24. Checked against the
-    CONCRETE quantized constants (the pipelines close over the device
-    tree); a traced tree falls back to the generic fused kernel."""
-    import numpy as np
-
-    try:
-        bmax = int(np.abs(np.asarray(blk["prj"]["b"])).max())
-    except Exception:
-        return False
-    return cin * 127 * 127 + bmax < 2 ** 24
-
-
 def forward_v3_i8(dev: Dict[str, Any], x_q, config: V3Config, *,
-                  collect: bool = False,
-                  num_blocks: Optional[int] = None,
-                  use_fused: bool = False):
-    """INT8 V3 forward. x_q: int8 at s_in = 1/127, or bfloat16 carrying
-    the same integers (quantize_input_dev — the stem rides the exact bf16
-    MXU conv, the conv1_i8 argument). Exactly equal to forward_all_v3_i8
-    per layer. use_fused routes eligible expand-carrying bottlenecks
-    through the int8 V3 Pallas kernel (quant/pallas_ir_v3_i8.py — logits
-    BIT-IDENTICAL, two schedules of one integer program); no-expand and
-    VMEM-busting blocks stay on the XLA ops (v3_i8_fits)."""
-    import jax.numpy as jnp
-    from jax import lax
-
-    from ..ops.conv import _DIMS
+                  collect: bool = False):
+    """INT8 V3 forward on XLA ops. x_q: int8 at s_in = 1/127, or bfloat16
+    carrying the same integers. Exactly equal to forward_all_v3_i8 per
+    layer."""
+    from . import ops as qops
 
     acts: Dict[str, Any] = {}
-    plan = None
-    if use_fused and not collect:
-        from .pallas_ir_v3_i8 import v3_block_pallas_i8
-
-        conv1_dtype, plan = _fused_plan_v3(dev, config, int(x_q.shape[0]))
     c1 = dev["conv1"]
-    yc = lax.conv_general_dilated(
-        x_q.astype(jnp.bfloat16), c1["w"].astype(jnp.bfloat16),
-        window_strides=(2, 2), padding="SAME", dimension_numbers=_DIMS,
-        preferred_element_type=jnp.float32)
-    y = _requant_named_dev(yc.astype(jnp.int32) + c1["b"], c1["a"],
-                           c1["inv_s"], config.head_act,
-                           out_dtype=conv1_dtype if plan else None)
+    y = _requant_named_dev(qops.conv3x3_s2_acc(x_q, c1["w"]) + c1["b"],
+                           c1["a"], c1["inv_s"], config.head_act)
     if collect:
         acts["conv1"] = y
 
     for i, (bd, blk) in enumerate(zip(config.block_defs, dev["blocks"])):
-        if num_blocks is not None and i >= num_blocks:
-            return y
-        cin_a = int(y.shape[-1])
-        cin_nom = (int(blk["exp"]["w"].shape[0]) if "exp" in blk
-                   else int(blk["dw"]["w"].shape[-1]))
-        if "exp" in blk and cin_nom < cin_a:
-            # A packed-s2 producer (below) widened the activation with zero
-            # channels; pad the expand rows (int8 zeros — exact zero
-            # contributions) and, for residual blocks, the projection cols
-            # (zero w/b/a -> requant emits exact zeros) to match. The
-            # padded stretch collapses at the first non-residual block.
-            blk = dict(blk, exp=dict(blk["exp"], w=jnp.pad(
-                blk["exp"]["w"], ((0, cin_a - cin_nom), (0, 0)))))
-        if bd.has_res and int(blk["prj"]["w"].shape[1]) < cin_a:
-            pc = cin_a - int(blk["prj"]["w"].shape[1])
-            blk = dict(blk, prj=dict(
-                blk["prj"],
-                w=jnp.pad(blk["prj"]["w"], ((0, 0), (0, pc))),
-                b=jnp.pad(blk["prj"]["b"], (0, pc)),
-                a=jnp.pad(blk["prj"]["a"], (0, pc))))
-        if plan is not None and plan[i][0]:
-            if (not bd.has_expand and bd.kernel == 3 and bd.stride == 1
-                    and not bd.se_mid and bd.act == "relu"
-                    and y.dtype == jnp.bfloat16 and cin_a < 128
-                    and 128 % cin_a == 0
-                    and (int(y.shape[2]) * cin_a) % 128 == 0
-                    and ((128 // cin_a)
-                         * int(blk["prj"]["w"].shape[1])) % 128 == 0
-                    and _packed_bias_ok(blk, cin_a)):
-                # t == 1 relu block on the lane-packed named-act kernel —
-                # the float block-0 treatment's int8 twin (the identity-
-                # expand rows route wastes 7/8 of every vector at ep=128;
-                # models/mobilenet_v3.py block-0 comment). Residual joins
-                # in the PACKED bf16 domain: exact ints (|sum| <= 254 is
-                # exact in bf16), clip to the int8 grid, measured free
-                # (an unpacked (...,16) add costs 8x lane waste).
-                from ..ops.pallas_block_packed import pack, unpack
-                from .pallas_block_packed_i8 import packed_block_i8_named
-
-                cout_a = int(blk["prj"]["w"].shape[1])
-                out_dt = plan[i][2]
-                xp = pack(y, cin_a)
-                d, p = blk["dw"], blk["prj"]
-                yp = packed_block_i8_named(
-                    xp, d["w"], d["b"], d["a"], p["w"], p["b"], p["a"],
-                    cin_a, cout_a, bd.act, float(d["inv_s"]),
-                    float(p["inv_s"]),
-                    out_dtype="bfloat16" if bd.has_res else
-                    jnp.dtype(out_dt).name, fold=FOLDED_REQUANT)
-                if bd.has_res:
-                    yp = jnp.clip(yp.astype(jnp.float32)
-                                  + xp.astype(jnp.float32),
-                                  -128, 127).astype(out_dt)
-                y = unpack(yp, cout_a)
-                continue
-            e_a = (int(blk["exp"]["w"].shape[1]) if bd.has_expand else cin_a)
-            narrow_s2 = (
-                PACKED_EXPAND_S2_I8 and bd.has_expand and bd.kernel == 3
-                and bd.stride == 2 and not bd.se_mid and bd.act == "relu"
-                and y.dtype == jnp.bfloat16 and cin_a < 128
-                and 128 % cin_a == 0
-                and (int(y.shape[2]) * cin_a) % 128 == 0
-                and int(y.shape[1]) % 2 == 0 and int(y.shape[2]) % 2 == 0
-                and _dot_bias_ok(blk["exp"], cin_a)
-                and _dot_bias_ok(blk["prj"], e_a))
-            if narrow_s2:
-                from ..ops.pallas_expand_s2 import (  # noqa: PLC0415
-                    expand_s2_eligible)
-
-                r2 = (128 // cin_a) // 2
-                cm = 128 // r2 if r2 else 0
-                cout_a = int(blk["prj"]["w"].shape[1])
-                cout_p = -(-cout_a // cm) * cm if cm else 0
-                if (FUSED_EXPAND_S2_I8 and r2
-                        and expand_s2_eligible(cin_a, e_a, cout_p,
-                                               int(y.shape[2]))
-                        and _dot_bias_ok(blk["dw"], 9)):
-                    # Single fused kernel — the bf16 FUSED_EXPAND_S2
-                    # route's EXACT named-act twin (module docstring of
-                    # quant/pallas_expand_s2_i8). Padded projection cols
-                    # carry zero w/b/a, so requant emits exact zeros;
-                    # consumers pad to match (above).
-                    from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-                    from .pallas_expand_s2_i8 import (  # noqa: PLC0415
-                        expand_block_packed_s2_i8)
-
-                    ex, d, p = blk["exp"], blk["dw"], blk["prj"]
-                    pw = jnp.pad(p["w"], ((0, 0), (0, cout_p - cout_a)))
-                    pb = jnp.pad(p["b"], (0, cout_p - cout_a))
-                    pa = jnp.pad(p["a"], (0, cout_p - cout_a))
-                    out = expand_block_packed_s2_i8(
-                        pack(y, cin_a), ex["w"], ex["b"], ex["a"],
-                        d["w"], d["b"], d["a"], pw, pb, pa,
-                        cin_a, bd.act, float(ex["inv_s"]),
-                        float(d["inv_s"]), float(p["inv_s"]),
-                        out_dtype=jnp.dtype(plan[i][2]).name)
-                    y = out.reshape(out.shape[0], out.shape[1], -1, cout_p)
-                    continue
-            if (narrow_s2
-                    and e_a < 128 and 128 % e_a == 0
-                    and (128 // e_a) % 2 == 0):
-                # Narrow-input stride-2 expand block (V3-Large block 1:
-                # Cin=16 at 112², E=64) — measured 8.95 of 26.1 ms/batch-256
-                # on the generic fused kernel (prefix_attr --int8,
-                # 2026-08-19): the float packed-expand route's int8 twin
-                # (design.md §3.3d). Expansion as one kron matmul on the
-                # bf16-carried ints, then the named-act packed s2 kernel
-                # with a LINEAR projection padded to 128 zero cols (requant
-                # maps them to exact zeros); consumers pad to match
-                # (above). Bit-identical to the XLA ops sequence.
-                from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-                from .pallas_block_packed_i8 import (  # noqa: PLC0415
-                    packed_block_i8_named_s2, packed_expand_i8_named)
-
-                ex, d, p = blk["exp"], blk["dw"], blk["prj"]
-                ye = packed_expand_i8_named(
-                    y, ex["w"], ex["b"], ex["a"], ex["inv_s"], bd.act)
-                cout_a = int(p["w"].shape[1])
-                pw = jnp.pad(p["w"], ((0, 0), (0, 128 - cout_a)))
-                pb = jnp.pad(p["b"], (0, 128 - cout_a))
-                pa = jnp.pad(p["a"], (0, 128 - cout_a))
-                yp = packed_block_i8_named_s2(
-                    pack(ye, e_a), d["w"], d["b"], d["a"], pw, pb, pa,
-                    e_a, 128, bd.act, float(d["inv_s"]), float(p["inv_s"]),
-                    out_dtype=jnp.dtype(plan[i][2]).name,
-                    fold=FOLDED_REQUANT)
-                # (R/2)*cout_pad == 128: the packed output IS dense NHWC
-                y = yp.reshape(yp.shape[0], yp.shape[1], -1, 128)
-                continue
-            if cin_a > cin_nom:
-                # a widened input busts the nominal-VMEM plan decision;
-                # re-check feasibility at the ACTUAL dims (the bf16
-                # model's cin_a discipline) and fall back to the exact
-                # XLA ops when the padded block no longer fits.
-                from .pallas_ir_v3_i8 import v3_i8_fits  # noqa: PLC0415
-
-                if not v3_i8_fits(
-                        int(y.shape[0]), int(y.shape[1]), int(y.shape[2]),
-                        cin_a, e_a, int(blk["prj"]["w"].shape[1]),
-                        bd.kernel, bd.stride,
-                        0 if not bd.se_mid else
-                        int(blk["se1"]["w"].shape[1])):
-                    y = _xla_block_v3_i8(y, bd, blk, out_dtype=plan[i][2])
-                    continue
-            y = v3_block_pallas_i8(
-                y, blk.get("exp"), blk["dw"], blk["prj"], k=bd.kernel,
-                stride=bd.stride, act=bd.act,
-                se1=blk.get("se1"), se2=blk.get("se2"),
-                residual=bd.has_res, out_dtype=plan[i][2])
-            continue
-        if plan is not None:
-            # Non-fitting t=1 SE s2 block (Small b0: 112² with SE busts the
-            # whole-image VMEM plan): the lane-packed SE kernel — one bf16
-            # read of the packed image, dw taps + SE gate + projection all
-            # in VMEM (quant/pallas_block_packed_i8.packed_block_i8_named_
-            # s2_se). The XLA fallback below measured 4.28 ms/batch-256
-            # here even after the eo-split fix (2026-08-20).
-            if (not bd.has_expand and bd.kernel == 3 and bd.stride == 2
-                    and bd.se_mid and bd.act == "relu" and not bd.has_res
-                    and y.dtype == jnp.bfloat16
-                    and cin_a < 128 and 128 % cin_a == 0
-                    and (128 // cin_a) % 2 == 0
-                    and (int(y.shape[2]) * cin_a) % 128 == 0
-                    and int(y.shape[1]) % 2 == 0
-                    and _dot_bias_ok(blk["dw"], 9)
-                    and _dot_bias_ok(blk["prj"], cin_a)):
-                from ..ops.pallas_block_packed import pack  # noqa: PLC0415
-                from .pallas_block_packed_i8 import (  # noqa: PLC0415
-                    packed_block_i8_named_s2_se)
-
-                r2 = (128 // cin_a) // 2
-                cm = 128 // r2
-                cout_a = int(blk["prj"]["w"].shape[1])
-                cout_p = -(-cout_a // cm) * cm
-                d, p = blk["dw"], blk["prj"]
-                s1, s2 = blk["se1"], blk["se2"]
-                pw = jnp.pad(p["w"], ((0, 0), (0, cout_p - cout_a)))
-                pb = jnp.pad(p["b"], (0, cout_p - cout_a))
-                pa = jnp.pad(p["a"], (0, cout_p - cout_a))
-                out = packed_block_i8_named_s2_se(
-                    pack(y, cin_a), d["w"], d["b"], d["a"],
-                    s1["w"], s1["b"], s1["a"], s2["w"], s2["b"], s2["a"],
-                    pw, pb, pa, cin_a, cout_p, bd.act, float(d["inv_s"]),
-                    float(s1["inv_s"]), float(p["inv_s"]),
-                    out_dtype=jnp.dtype(plan[i][2]).name,
-                    fold=FOLDED_REQUANT)
-                y = out.reshape(out.shape[0], out.shape[1], -1, cout_p)
-                continue
-            # non-fitting block under the fused plan: the exact XLA
-            # fallback, with the plan's carriage dtypes riding through
-            y = _xla_block_v3_i8(y, bd, blk, out_dtype=plan[i][2])
-            continue
-        z = y
-        if bd.has_expand:
-            e = blk["exp"]
-            z = _requant_named_dev(_pw_acc_dev(z, e["w"], e["b"]),
-                                   e["a"], e["inv_s"], bd.act)
-            if collect:
-                acts[f"block{i:02d}_exp"] = z
-        d = blk["dw"]
-        z = _requant_named_dev(
-            _dwk_acc_dev(z, d["w"], bd.stride, bd.kernel) + d["b"],
-            d["a"], d["inv_s"], bd.act)
-        if collect:
-            acts[f"block{i:02d}_dw"] = z
-        if bd.se_mid:
-            z = _se_i8_dev(z, blk["se1"], blk["se2"])
-            if collect:
-                acts[f"block{i:02d}_se"] = z
-        p = blk["prj"]
-        out = _requant_named_dev(_pw_acc_dev(z, p["w"], p["b"]),
-                                 p["a"], p["inv_s"], "linear")
-        if collect:
-            acts[f"block{i:02d}_prj"] = out
-        if bd.has_res:
-            out = jnp.clip(out.astype(jnp.int32) + y.astype(jnp.int32),
-                           -128, 127).astype(jnp.int8)
-            if collect:
-                acts[f"block{i:02d}_out"] = out
-        y = out
-    if num_blocks is not None:
-        return y
+        y = block_v3_i8(blk, y, bd, acts if collect else None,
+                        f"block{i:02d}")
     cl = dev["conv_last"]
     y = _requant_named_dev(_pw_acc_dev(y, cl["w"], cl["b"]),
                            cl["a"], cl["inv_s"], config.head_act)
     if collect:
         acts["conv_last"] = y
-    from . import ops as qops
-
     pooled = qops.avgpool_i8(y)
     if collect:
         acts["pool"] = pooled
@@ -941,6 +549,43 @@ def forward_v3_i8(dev: Dict[str, Any], x_q, config: V3Config, *,
 # ---------------------------------------------------------------------------
 # verify gate + pipeline adapters
 # ---------------------------------------------------------------------------
+
+
+def block_v3_i8(blk, y, bd, acts: Optional[Dict[str, Any]] = None,
+                name: str = ""):
+    """One int8 V3 bottleneck on XLA ops (device twin of the oracle's
+    block): expand (when present), dw kxk, quantized SE (when present),
+    linear projection, saturating residual add. `acts` collects the taps
+    {name}_exp/_dw/_se/_prj/_out."""
+    import jax.numpy as jnp
+
+    def tap(kind, v):
+        if acts is not None:
+            acts[f"{name}_{kind}"] = v
+
+    z = y
+    if bd.has_expand:
+        e = blk["exp"]
+        z = _requant_named_dev(_pw_acc_dev(z, e["w"], e["b"]),
+                               e["a"], e["inv_s"], bd.act)
+        tap("exp", z)
+    d = blk["dw"]
+    z = _requant_named_dev(
+        _dwk_acc_dev(z, d["w"], bd.stride, bd.kernel) + d["b"],
+        d["a"], d["inv_s"], bd.act)
+    tap("dw", z)
+    if bd.se_mid:
+        z = _se_i8_dev(z, blk["se1"], blk["se2"])
+        tap("se", z)
+    p = blk["prj"]
+    out = _requant_named_dev(_pw_acc_dev(z, p["w"], p["b"]),
+                             p["a"], p["inv_s"], "linear")
+    tap("prj", out)
+    if bd.has_res:
+        out = jnp.clip(out.astype(jnp.int32) + y.astype(jnp.int32),
+                       -128, 127).astype(jnp.int8)
+        tap("out", out)
+    return out
 
 
 def verify_int8_v3(config: V3Config, folded: Dict[str, Any],
@@ -976,28 +621,20 @@ def verify_int8_v3(config: V3Config, folded: Dict[str, Any],
     return ok
 
 
-def make_int8_infer_v3(q: V3QuantizedParams, config: V3Config,
-                       use_fused="auto"):
-    """Compiled int8 V3 entry: uint8 images -> float32 logits. use_fused:
-    bool | "auto" — resolved per traced batch shape
-    (quantize.resolve_int8_fused, the measured v5e crossover)."""
+def make_int8_infer_v3(q: V3QuantizedParams, config: V3Config):
+    """Compiled int8 V3 entry: uint8 images -> float32 logits."""
     import jax
     import jax.numpy as jnp
 
     from ..ops import preprocess as prep
     from . import ops as qops
-    from .quantize import resolve_int8_fused
 
     dev = _as_device_tree_v3(q)
 
     def infer(images_u8):
         x = prep.preprocess(images_u8, config.resolution, jnp.float32)
-        x_q = qops.quantize_input_dev(x, ACT_IN_SCALE,
-                                      out_dtype=jnp.bfloat16)
-        fam = "v3small" if config.variant == "small" else "v3large"
-        fused = resolve_int8_fused(use_fused, int(images_u8.shape[0]),
-                                   family=fam)
-        return forward_v3_i8(dev, x_q, config, use_fused=fused)
+        x_q = qops.quantize_input_dev(x, ACT_IN_SCALE)
+        return forward_v3_i8(dev, x_q, config)
 
     return jax.jit(infer), dev
 
@@ -1008,21 +645,14 @@ class Int8PipelineV3:
     data-parallel sharding via jit propagation)."""
 
     def __init__(self, config: V3Config, *, seed: int = 0, params=None,
-                 mesh=None, use_fused="auto"):
+                 mesh=None):
         import jax
         import jax.numpy as jnp
 
         from ..checkpoints import default_folded
         from ..ops import preprocess as prep
         from . import ops as qops
-        from .quantize import resolve_int8_fused
 
-        # use_fused routes eligible bottlenecks through the int8 V3 Pallas
-        # kernel (pallas_ir_v3_i8.py; bit-identical logits). bool | "auto"
-        # (default): the measured v5e crossover — xla at batch 1, fused
-        # from batch 2 (resolve_int8_fused; raced by `cli autotune --model
-        # v3 --int8`, 2026-08-18 chip campaign).
-        self.use_fused = use_fused
         self.config = config
         if mesh is not None:
             from ..runtime.pipeline import _require_dp_only_mesh
@@ -1047,16 +677,10 @@ class Int8PipelineV3:
         self._dev = dev
         cfg = config
 
-        spec = self.use_fused
-
         def probs(images_u8):
             x = prep.preprocess(images_u8, cfg.resolution, jnp.float32)
-            x_q = qops.quantize_input_dev(x, ACT_IN_SCALE,
-                                          out_dtype=jnp.bfloat16)
-            fam = ("v3small" if cfg.variant == "small" else "v3large")
-            fused = resolve_int8_fused(spec, int(images_u8.shape[0]),
-                                       family=fam)
-            logits = forward_v3_i8(dev, x_q, cfg, use_fused=fused)
+            x_q = qops.quantize_input_dev(x, ACT_IN_SCALE)
+            logits = forward_v3_i8(dev, x_q, cfg)
             return jax.nn.softmax(logits, axis=-1)
 
         self._probs = jax.jit(probs)

@@ -17,16 +17,14 @@ from .quantize import QuantizedParams, quantize, quantize_input
 
 
 def verify_int8(config: ModelConfig, folded_params: Dict[str, Any],
-                x_f32: np.ndarray, oracle: str = "numpy",
-                use_pallas_dw: bool = False) -> bool:
+                x_f32: np.ndarray, oracle: str = "numpy") -> bool:
     """Run device int8 pipeline and oracle; every layer must match exactly."""
     q = quantize(folded_params, config)
     x_i8 = quantize_input(x_f32)
 
     dev = qmodel._as_device_tree(q)
     logits_d, acts_d = jax.jit(
-        lambda x: qmodel.forward_i8(dev, x, config, use_pallas_dw=use_pallas_dw,
-                                    collect=True)
+        lambda x: qmodel.forward_i8(dev, x, config, collect=True)
     )(jnp.asarray(x_i8))
 
     if oracle == "cpp":

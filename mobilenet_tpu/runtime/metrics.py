@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import platform
+import platform as host_platform
 import time
 from typing import Any, Dict, Optional
 
@@ -26,32 +26,35 @@ class RunReport:
     p50_latency_ms: float
     p99_latency_ms: float
     backend: str = ""
-    dw_backend: str = ""
+    device_kind: str = ""
     compile_seconds: Optional[float] = None
     xla_flops: Optional[float] = None
     xla_bytes_accessed: Optional[float] = None
     model_macs_per_image: Optional[float] = None
-    mxu_utilization: Optional[float] = None
+    mfu: Optional[float] = None  # None off the GPU: not measured
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
     timestamp: float = dataclasses.field(default_factory=time.time)
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
-        d["host"] = platform.node()
+        d["host"] = host_platform.node()
         return json.dumps(d)
 
 
 def build_report(pipeline, stats: Dict[str, float], *,
                  compile_seconds: Optional[float] = None,
                  with_cost_analysis: bool = False) -> RunReport:
+    from .. import platform
     from ..utils.profiling import flops_per_image
 
     cfg = pipeline.config
     macs = flops_per_image(cfg)
     imgs = stats["images_per_sec"]
-    # v5e bf16 peak ~197 TFLOP/s; utilization = achieved / peak.
-    peak = 197e12 if str(pipeline.dtype) != "float32" else 197e12 / 4
-    util = (imgs * macs * 2) / peak
+    kind = jax.devices()[0].device_kind
+    mfu = None
+    if platform.accelerator() == "gpu":
+        # model FLOP/s over the device's published bf16 peak
+        mfu = round(imgs * macs * 2 / platform.peak(kind).bf16_flops, 5)
 
     report = RunReport(
         variant=cfg.variant_name(),
@@ -61,10 +64,10 @@ def build_report(pipeline, stats: Dict[str, float], *,
         p50_latency_ms=round(stats.get("p50_latency_ms", 0.0), 3),
         p99_latency_ms=round(stats.get("p99_latency_ms", 0.0), 3),
         backend=jax.default_backend(),
-        dw_backend=str(pipeline.dw_backend or ("pallas" if pipeline.use_pallas_dw else "xla")),
+        device_kind=kind,
         compile_seconds=compile_seconds,
         model_macs_per_image=macs,
-        mxu_utilization=round(util, 4),
+        mfu=mfu,
         extra={k: v for k, v in stats.items()
                if k not in {"images_per_sec", "p50_latency_ms", "p99_latency_ms",
                             "batch_size"}},

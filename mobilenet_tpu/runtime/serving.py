@@ -1,7 +1,7 @@
-"""Multi-stream serving: 64 concurrent image streams -> micro-batcher -> TPU.
+"""Multi-stream serving: 64 concurrent image streams -> micro-batcher -> device.
 
 Reference analog: SURVEY.md SS3.3 / C12 — 64 in-flight OpenCL streams with
-double-buffered host->HBM DMA (BASELINE.json:11). TPU-native shape:
+double-buffered host->HBM DMA (BASELINE.json:11). Here:
   - each stream is an asyncio producer; requests land in one queue
   - the micro-batcher drains up to `max_batch` requests (or waits at most
     `max_delay_ms`), pads to a fixed batch so there is exactly ONE jit entry,
@@ -99,10 +99,9 @@ class MicroBatchServer:
         retried before the batch's requests fail; only device/runtime error
         types retry (_is_retryable_device_error) — deterministic shape/value
         errors fail fast on the first attempt. Backoff is exponential:
-        retry_backoff_s * 2**attempt. Covers transient device errors — e.g.
-        this platform's ~2 min FailedPrecondition storm after another process
-        crashed the chip needs device_retries≈8 at the default 0.5 s base
-        (0.5+1+2+...+64 ≈ 127 s of cumulative backoff).
+        retry_backoff_s * 2**attempt. 0 turns retries off, so every device
+        failure reaches the caller and the error counter (what a
+        measurement run wants).
 
         `batch_buckets`: fixed batch sizes to precompile; each dispatch pads
         to the SMALLEST bucket that fits the drained requests, so one lone
@@ -133,9 +132,9 @@ class MicroBatchServer:
                 f"batch_buckets {buckets} must be >=1 and end at "
                 f"max_batch={max_batch} (a full drain must fit a bucket)")
         self.batch_buckets = buckets
-        # Pre-compile every bucket entry so first requests aren't hit by a
-        # 30-60 s remote compile (one jit cache entry per bucket — the
-        # multi-bitstream analog).
+        # Pre-compile every bucket entry so first requests don't pay a
+        # compile (one jit cache entry per bucket — the multi-bitstream
+        # analog).
         self._pad_templates = {
             b: np.zeros((b, res, res, 3), np.uint8) for b in buckets
         }
@@ -343,7 +342,7 @@ class MultiVariantServer:
     """Route requests across several model variants served from ONE process.
 
     The reference is one-bitstream-per-configuration (SURVEY.md SS5) —
-    switching variants means reprogramming the FPGA. On TPU a variant is
+    switching variants means reprogramming the FPGA. Here a variant is
     just another set of compiled entries + HBM-resident weights, so one
     process can serve a latency tier (e.g. 0.25-128) and an accuracy tier
     (1.0-224) side by side: each variant keeps its own MicroBatchServer
@@ -488,8 +487,7 @@ def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int,
                dp: int = 1, params=None, variants=None, model: str = "v1",
                minimalistic: bool = False):
     """`dp`: data-parallel width — batches shard over a `dp`-device mesh
-    (ICI collectives via shard_map; params replicated). 1 = single chip,
-    the contract configuration.
+    (shard_map; params replicated). 1 = one device.
 
     `variants`: optional list of "alpha:res" (or "v2:alpha:res") strings —
     serve SEVERAL model variants from one process (MultiVariantServer),

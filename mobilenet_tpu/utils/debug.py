@@ -1,7 +1,6 @@
 """Numerics debugging: the rebuild's analog of the reference's sw_emu/hw_emu
 sanitizer tiers (SURVEY.md SS5 'Race detection / sanitizers').
 
-  - `interpret_mode()` — run every Pallas kernel interpreted on CPU
   - `checked_forward` — checkify-wrapped forward that traps NaN/Inf and
     reports the failing layer
   - `assert_finite_tree` — host-side pytree NaN/Inf sweep
@@ -9,22 +8,11 @@ sanitizer tiers (SURVEY.md SS5 'Race detection / sanitizers').
 
 from __future__ import annotations
 
-import contextlib
-from typing import Any, Dict
+from typing import Any
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.experimental import checkify
-
-
-@contextlib.contextmanager
-def interpret_mode():
-    """Force Pallas interpreter execution (sw_emu tier) regardless of backend."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def checked_forward(params, x, config, **kw):

@@ -6,7 +6,7 @@ pipeline with collect=True compared against the oracle (NumPy twin or C++
 cpu_ref), reporting the first divergent layer.
 
 Tolerance policy (SURVEY.md SS7 'Bit-matching float32 per layer'): XLA convs and
-MXU matmuls reassociate float32 accumulation relative to the oracle's fixed tap
+device matmuls reassociate float32 accumulation relative to the oracle's fixed tap
 order, so the float32 gate is elementwise |diff| <= atol + rtol*|ref| with
 tight constants (abs error stays ~1e-6 at activation scale O(1..6)); max-ULP is
 reported alongside as a diagnostic. The INT8 path, where requantization is
@@ -47,46 +47,22 @@ V2_TOL = (1e-3, 1e-3)
 # >=2x headroom while staying >=30x below real-defect scale.
 V3_TOL = (3e-3, 1e-3)
 
-# Routing-equivalence gate (cli verify --routing ...), bf16: two VALID
-# accumulation structures of the SAME program (fused Pallas in-kernel f32
-# accumulate + bf16 inter-block stores vs XLA's fusion choices) diverge by
-# bf16 rounding compounded over depth, PROPORTIONAL TO LOGITS SCALE — an
-# absolute atol calibrated on one family cannot gate another. Measured at
-# the deepest/noisiest member (V3-Large 1.0-224, seeded weights, logits
-# absmax 41.5): fused-vs-xla max_abs = 1.5% of absmax in interpret mode,
-# 2.1% on chip; and BOTH bf16 routes sit 2.9-4.2% of absmax from the fp32
-# oracle — the fused route is the CLOSER of the two (its dw/SE/matmul
-# chain accumulates in f32 in-kernel). V1 class: 2.3e-2 absolute at
-# 0.25-64 interpret; 6e-2 passed 256/256 rows on chip at 1.0-224.
-ROUTING_BF16_ATOL = 6e-2     # absolute floor (V1-calibrated, round 3)
-ROUTING_BF16_REL = 4.5e-2    # x logits absmax: ~3x the measured V3 class
-# Extreme-value headroom for the max-abs inter-route check: defectless
-# reassociation noise has max ~ rms*sqrt(2 ln(N*K)) (measured dead-on at
-# V2 1.0-224 batch 256: predicted 0.709, observed 0.699/0.762 across two
-# image sets); 1.5x covers draw-to-draw spread. A localized defect blows
-# the max/rms ratio far past this; a broad one moves the RMS anchor.
-ROUTING_EV_FACTOR = 1.5
+# bf16 device logits vs the float32 reference of the same weights on the
+# same device (chip_smoke.py): max |bf16 - f32| <= BF16_LOGITS_REL * the
+# reference's max |logit|. bf16 keeps 8 mantissa bits, and every layer
+# stores its output in bf16, so the rounding compounds with depth in
+# proportion to the logits' scale; a wrong padding, stride or fold is off by
+# O(1) of that scale. V2/V3 carry unclipped linear bottlenecks and
+# residual sums, so their rounding compounds further than V1's. Values and
+# measured basis: PERF.md, "Tolerances".
+BF16_LOGITS_REL = {"v1": 3e-2, "v2": 1.5e-1, "v3": 1.2e-1}
 
-
-def routing_bf16_atol(scale: float, rms_fr: float, n_samples: int) -> float:
-    """max-abs tolerance for the bf16 routing-equivalence gate: the
-    batch-4-calibrated absolute/relative floors, lifted by the
-    extreme-value bound of the MEASURED inter-route rms over n_samples
-    (cli._verify_routing documents the round-5 V2 batch-256 calibration
-    and the defect-detection argument)."""
-    import numpy as _np
-
-    ev = rms_fr * float(_np.sqrt(2.0 * _np.log(max(float(n_samples), 2.0))))
-    return max(ROUTING_BF16_ATOL, ROUTING_BF16_REL * scale,
-               ROUTING_EV_FACTOR * ev)
-# Oracle anchor (bf16): the route under test must stay within this factor
-# of the xla route's OWN RMS distance from the fp32 oracle — a route that
-# adds real error (not reassociation noise) lands far outside it,
-# independent of how deep/badly-conditioned the network is. RMS, not max:
-# max-abs is an extreme-value statistic that flipped 1.5x in DIRECTION
-# between interpret and chip runs of the same program (design.md §8); RMS
-# of the same runs is stable, and a defect inflates RMS broadly.
-ROUTING_ANCHOR_FACTOR = 1.5
+# The fused block kernel (ops/block_triton.py) vs the NumPy oracle at one
+# block: bf16 output is stored in bf16, whose step at ReLU6's top (4..6) is
+# 2^-5 = 0.031, and the depthwise tile is rounded to bf16 before the dot;
+# float32 sums in another order than the oracle (MM_TOL's reasoning).
+KERNEL_BF16_TOL = (4e-2, 1e-2)
+KERNEL_F32_TOL = MM_TOL
 
 # Measured bf16 top-1 flip class for `cli eval` tie-awareness: relative
 # oracle-logit margins under which a device-bf16 top-1 flip is rounding,

@@ -2,7 +2,7 @@
 
 Reference analog (SURVEY.md SS5): OpenCL event profiling
 (CL_QUEUE_PROFILING_ENABLE + clGetEventProfilingInfo) and SDAccel profile
-summaries around each enqueue. TPU-native equivalents:
+summaries around each enqueue. JAX equivalents:
   - `trace(path)` — jax.profiler context manager producing Perfetto/XProf
     traces of the compiled steps
   - `cost_analysis(fn, *args)` — XLA's per-executable FLOP/byte model
@@ -31,7 +31,7 @@ def cost_analysis(fn, *args, **kwargs) -> Dict[str, float]:
     """Lower+compile `fn` and return XLA's cost model numbers.
 
     Keys of interest: 'flops', 'bytes accessed', plus per-memory-space
-    breakdown. This quantifies the HBM-traffic claims of the fused kernels.
+    breakdown.
     """
     lowered = jax.jit(fn).lower(*args, **kwargs)
     compiled = lowered.compile()

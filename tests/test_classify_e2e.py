@@ -101,9 +101,8 @@ def test_verify_cli_honors_ckpt(tmp_path, capsys):
 
 def test_verify_alpha075_keeps_unpadded_shapes(capsys):
     """ADVICE r1 (medium): verify must keep UNPADDED channel shapes so
-    activations line up with the oracle — alpha=0.75 channel counts (24/48/96)
-    trigger the padding pass under 'auto'/'fused' routing, so cmd_verify pins
-    dw_backend='xla'. Exit 0 = per-layer report ran, no shape mismatch."""
+    activations line up with the oracle at alpha=0.75 channel counts
+    (24/48/96). Exit 0 = per-layer report ran, no shape mismatch."""
     with pytest.raises(SystemExit) as ei:
         cli.main(["verify", "--alpha", "0.75", "--res", "64",
                   "--oracle", "numpy"])
@@ -113,12 +112,12 @@ def test_verify_alpha075_keeps_unpadded_shapes(capsys):
 
 
 def test_verify_pipeline_unpadded_even_when_padding_backend():
-    """The collect/verify entry must see the oracle's channel widths: with
-    dw_backend='xla' no padding pass applies (padding.py invariant)."""
+    """The collect/verify entry must see the oracle's channel widths: the
+    pipeline never pads channels."""
     from mobilenet_tpu.runtime.pipeline import InferencePipeline
 
     cfg = ModelConfig(alpha=0.75, resolution=64)
-    pipe = InferencePipeline(cfg, seed=0, dtype=np.float32, dw_backend="xla")
+    pipe = InferencePipeline(cfg, seed=0, dtype=np.float32)
     rng = np.random.default_rng(0)
     x = rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
     _, acts = pipe.activations(x)

@@ -60,3 +60,20 @@ def test_full_forward_matches_numpy_twin(lib):
     np.testing.assert_array_equal(acts_c["block00_dw"], acts_np["block00_dw"])
     np.testing.assert_allclose(logits_c, logits_np, atol=1e-4, rtol=1e-3)
     assert np.argmax(logits_c) == np.argmax(logits_np)
+
+
+@pytest.mark.parametrize("module", ["cpu_ref", "native_io"])
+def test_build_without_compiler_is_a_clear_error(module, monkeypatch):
+    """A missing g++ surfaces as a RuntimeError naming the cause when the
+    library is built, never as a crash at import."""
+    import importlib
+    import subprocess
+
+    mod = importlib.import_module(f"mobilenet_tpu.{module}")
+
+    def no_compiler(*a, **k):
+        raise FileNotFoundError("g++")
+
+    monkeypatch.setattr(subprocess, "run", no_compiler)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        mod.build(force=True)

@@ -2,7 +2,7 @@
 
 The reference's acceptance check was top-1 accuracy identical to the CPU
 reference on sample images (SURVEY.md §4, BASELINE.json:5). These tests run
-the gate on the sw_emu tier: device pipeline (CPU backend, XLA routing) vs
+the gate on the sw_emu tier: device pipeline (CPU backend) vs
 the NumPy/C++ golden oracles.
 """
 

@@ -76,7 +76,7 @@ def test_keras_real_v1(tmp_path):
     keras_logits = np.asarray(m(x, training=False))
 
     params = fold_bn(import_keras_h5(path, cfg), eps=cfg.bn_eps)
-    ours = mobilenet_v1.forward(params, x, cfg, dw_backend="xla")
+    ours = mobilenet_v1.forward(params, x, cfg)
     _gate(keras_logits, ours, "v1 0.25-128")
 
 
@@ -97,7 +97,7 @@ def test_keras_real_v2(tmp_path):
     keras_logits = np.asarray(m(x, training=False))
 
     params = fold_bn_v2(import_keras_h5_v2(path, cfg), eps=cfg.bn_eps)
-    ours = forward_v2(params, x, cfg, dw_backend="xla")
+    ours = forward_v2(params, x, cfg)
     _gate(keras_logits, ours, "v2 0.35-128")
 
 
@@ -119,5 +119,5 @@ def test_keras_real_v3small(tmp_path):
     keras_logits = np.asarray(m(x, training=False))
 
     params = fold_bn_v3(import_keras_h5_v3(path, cfg), eps=cfg.bn_eps)
-    ours = forward_v3(params, x, cfg, dw_backend="xla")
+    ours = forward_v3(params, x, cfg)
     _gate(keras_logits, ours, "v3small 1.0-224")

@@ -1,6 +1,6 @@
 """MobileNet-V3 family: config-vs-keras schedule, per-layer oracle gates
 (both oracles), SE/hard-swish semantics, CLI flows, and family parity
-(train/eval/serve/autotune) — the V3 twin of test_mobilenet_v2.py."""
+(train/eval/serve) — the V3 twin of test_mobilenet_v2.py."""
 
 import asyncio
 
@@ -80,8 +80,7 @@ def test_bad_config_rejected():
 @pytest.mark.parametrize("oracle", ["numpy", "cpp"])
 def test_per_layer_oracle_gate(setup, oracle):
     cfg, folded, x = setup
-    pipe = InferencePipeline(cfg, params=folded, dtype=np.float32,
-                             dw_backend="xla")
+    pipe = InferencePipeline(cfg, params=folded, dtype=np.float32)
     _, acts = pipe.activations(x)
     if oracle == "cpp":
         from mobilenet_tpu import cpu_ref
@@ -229,14 +228,6 @@ def test_serving_v3_selftest():
     assert stats["requests"] == 32 and stats["errors"] == 0
 
 
-def test_autotune_v3_cpu():
-    from mobilenet_tpu.runtime.autotune import autotune_backend
-
-    cfg = V3Config(variant="small", resolution=96)
-    best, results = autotune_backend(cfg, batch_size=4, steps=3)
-    assert best == "xla" and results["xla"] > 0
-
-
 def test_cli_v3_verify_and_classify(tmp_path, capsys):
     from PIL import Image
 
@@ -315,54 +306,3 @@ def test_cli_v3_export_roundtrip(tmp_path, capsys):
         np.asarray(forward_v3(folded, x, cfg)))
 
 
-def test_routing_v3_spec_resolution():
-    """auto resolves to the measured crossover: fused at throughput
-    batches, the MIXED batch-1 tuple (xla for the two 112-sq-tier blocks,
-    fused after — tools/ab_mixed_b1.py, v5e 2026-08-19)."""
-    from mobilenet_tpu.models.mobilenet_v3 import (_routing_v3,
-                                                   mixed_b1_routing)
-
-    cfg = V3Config(variant="large", alpha=1.0, resolution=224)
-    n = len(cfg.block_defs)
-    assert _routing_v3(cfg, "auto", 256) == ("fused",) * n
-    assert _routing_v3(cfg, "auto", 1) == mixed_b1_routing(cfg)
-    assert _routing_v3(cfg, "mixed", 8) == \
-        ("xla",) * 2 + ("fused",) * (n - 2)
-    assert _routing_v3(cfg, None, 1) == ("xla",) * n
-    with pytest.raises(AssertionError):
-        _routing_v3(cfg, "bogus", 1)
-    # Small's measured tuple keeps FOUR xla blocks (through the 28-sq
-    # tier) — the Large tuple measured a LOSS there (ab_mixed_b1.py).
-    sm = V3Config(variant="small", alpha=1.0, resolution=224)
-    ns = len(sm.block_defs)
-    assert _routing_v3(sm, "auto", 1) == \
-        ("xla",) * 4 + ("fused",) * (ns - 4)
-
-
-def test_model_mixed_matches_xla():
-    """The shipped batch-1 mixed tuple must agree with xla logits (f32,
-    CPU interpret) — same gate class as test_model_fused_matches_xla."""
-    cfg = V3Config(variant="large", alpha=1.0, resolution=96)
-    folded = fold_bn_v3(init_params_v3(cfg, seed=0), eps=cfg.bn_eps)
-    x = jnp.asarray(
-        np.random.default_rng(3).uniform(-1, 1, (1, 96, 96, 3)),
-        jnp.float32)
-    ref = forward_v3(folded, x, cfg, dw_backend="xla")
-    got = forward_v3(folded, x, cfg, dw_backend="mixed")
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               atol=1e-3, rtol=1e-3)
-
-
-def test_routing_verify_rejects_v1_only_routings():
-    """V2/V3 routing gates race xla vs fused/mixed; the V1-only "pallas"
-    routing must exit with a clean message, not an AssertionError deep in
-    _routing_v2/_routing_v3 (round-3 review finding). "mixed" became a
-    family routing when the measured batch-1 tuple shipped (2026-08-19,
-    tools/ab_mixed_b1.py)."""
-    from mobilenet_tpu import cli
-
-    for model in ("v2", "v3small"):
-        with pytest.raises(SystemExit) as e:
-            cli.main(["--backend", "cpu", "verify", "--model", model,
-                      "--alpha", "1.0", "--res", "96", "--routing", "pallas"])
-        assert isinstance(e.value.code, str) and "xla vs fused" in e.value.code

@@ -73,24 +73,3 @@ def test_layer_shape_table():
     assert dw_hw == [112, 112, 56, 56, 28, 28, 14, 14, 14, 14, 14, 14, 7]
 
 
-def test_auto_routing_mixed_at_batch1():
-    """'auto' resolves to fused at throughput batches and to the measured
-    mixed xla/fused tuple at batch 1 (docs/design.md §5; the batch-1 race
-    measured 0.123 ms mixed vs 0.135 all-xla vs 0.166 all-fused)."""
-    from mobilenet_tpu.models.mobilenet_v1 import _routing
-
-    cfg = ModelConfig(alpha=0.25, resolution=64)
-    assert _routing(cfg, None, "auto", 256) == ("fused",) * 13
-    mixed = _routing(cfg, None, "auto", 1)
-    assert mixed == ("xla",) * 2 + ("fused",) * 11
-
-    # The mixed tuple must produce the same logits as plain xla routing
-    # (interpret-mode Pallas on CPU).
-    from mobilenet_tpu.checkpoints import fold_bn, init_params
-
-    folded = fold_bn(init_params(cfg, seed=0), eps=cfg.bn_eps)
-    x = np.random.default_rng(3).uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
-    base = mobilenet_v1.forward(folded, x, cfg, dw_backend="xla")
-    got = mobilenet_v1.forward(folded, x, cfg, dw_backend=mixed)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                               atol=5e-4, rtol=5e-3)

@@ -62,19 +62,8 @@ def test_run_report_json():
     doc = json.loads(report.to_json())
     assert doc["variant"] == "mobilenet_v1_0.25_128"
     assert doc["model_macs_per_image"] > 1e7
-    assert 0 <= doc["mxu_utilization"] < 1
-
-
-def test_autotune_backend_cpu():
-    """runtime.autotune races backends e2e and returns a valid routing name."""
-    from mobilenet_tpu import ModelConfig
-    from mobilenet_tpu.models.mobilenet_v1 import DW_BACKENDS
-    from mobilenet_tpu.runtime.autotune import autotune_backend
-
-    best, results = autotune_backend(
-        ModelConfig(alpha=0.25, resolution=128), batch_size=2, steps=1)
-    assert best in DW_BACKENDS
-    assert results[best] > 0
+    assert doc["device_kind"] == "cpu"
+    assert doc["mfu"] is None  # no GPU peak applies on the CPU
 
 
 def test_bench_profile_flag(tmp_path):
@@ -99,34 +88,3 @@ def test_bench_profile_flag(tmp_path):
     assert os.path.isdir(prof) and os.listdir(prof)  # trace files written
 
 
-def test_fenced_window_extends_short_windows():
-    from mobilenet_tpu.utils.timing import fenced_window
-
-    calls = []
-
-    def step():
-        calls.append(1)
-        return len(calls)
-
-    dt, steps = fenced_window(step, lambda o: o, 2, min_window_s=0.0)
-    assert steps == 2 and len(calls) == 2
-    calls.clear()
-    # A ~1 ms/step workload against a 50 ms minimum window must scale up.
-    import time as _t
-
-    def slow_step():
-        calls.append(1)
-        _t.sleep(0.001)
-        return len(calls)
-
-    dt, steps = fenced_window(slow_step, lambda o: o, 2, min_window_s=0.05)
-    assert steps > 2
-    assert dt >= 0.04
-
-
-def test_fenced_window_caps_steps():
-    from mobilenet_tpu.utils.timing import fenced_window
-
-    dt, steps = fenced_window(lambda: 0, lambda o: o, 2,
-                              min_window_s=10.0, max_steps=16)
-    assert steps == 16

@@ -1,5 +1,5 @@
 """Data-parallel inference pipeline over the 8-device virtual CPU mesh:
-the multi-chip serving path (params replicated, batch sharded, Pallas kernels
+the multi-device serving path (params replicated, batch sharded, the network
 local per shard via shard_map)."""
 
 import numpy as np

@@ -1,13 +1,11 @@
 """Property-based fuzz over the framework's core numerical invariants
 (hypothesis). Complements the fixed-shape oracle tests: these assert the
-CONTRACTS — exact int8 arithmetic, oracle twin bit-agreement, padding
-invariance, preprocessing range — on randomized shapes and values.
+CONTRACTS — exact int8 arithmetic, oracle twin bit-agreement,
+preprocessing range — on randomized shapes and values.
 """
 
 import numpy as np
 from hypothesis import given, settings, strategies as st
-
-from mobilenet_tpu import ModelConfig
 
 SHORT = settings(max_examples=20, deadline=None)
 
@@ -102,21 +100,3 @@ def test_preprocess_range_and_shape(h, w, res):
     assert out.min() >= -1.0 - 1e-6 and out.max() <= 1.0 + 1e-6
 
 
-@settings(max_examples=8, deadline=None)
-@given(st.sampled_from([0.25, 0.5]), st.integers(0, 10**6))
-def test_padding_invariance_logits(alpha, seed):
-    """Channel zero-padding must leave fp32 logits exactly unchanged."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.checkpoints import fold_bn, init_params
-    from mobilenet_tpu.checkpoints.padding import pad_channels
-    from mobilenet_tpu.models import mobilenet_v1
-
-    cfg = ModelConfig(alpha=alpha, resolution=32, compute_dtype="float32")
-    folded = fold_bn(init_params(cfg, seed=seed % 100), eps=cfg.bn_eps)
-    rng = np.random.default_rng(seed)
-    x = jnp.asarray(rng.uniform(-1, 1, (1, 32, 32, 3)), jnp.float32)
-    base = np.asarray(mobilenet_v1.forward(folded, x, cfg, dw_backend="xla"))
-    padded = np.asarray(mobilenet_v1.forward(pad_channels(folded), x, cfg,
-                                             dw_backend="xla"))
-    np.testing.assert_array_equal(base, padded)

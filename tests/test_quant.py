@@ -1,5 +1,5 @@
-"""INT8 path tests: exact bit-match between device pipeline (CPU backend /
-interpret mode), NumPy int8 twin, and native C++ int8 oracle
+"""INT8 path tests: exact bit-match between device pipeline (CPU backend),
+NumPy int8 twin, and native C++ int8 oracle
 (BASELINE.json:10; SURVEY.md SS4 'INT8 path vs quantized oracle')."""
 
 import jax
@@ -12,7 +12,6 @@ from mobilenet_tpu.checkpoints import fold_bn, init_params
 from mobilenet_tpu.quant import oracle as qoracle
 from mobilenet_tpu.quant import ops as qops
 from mobilenet_tpu.quant import quantize, quantize_input
-from mobilenet_tpu.quant.pallas_dw_i8 import depthwise_i8_pallas
 from mobilenet_tpu.quant.verify import verify_int8
 
 
@@ -35,20 +34,6 @@ def test_device_vs_cpp_oracle_exact(setup):
     cfg, folded, q, x = setup
     cpu_ref.build()
     assert verify_int8(cfg, folded, x, oracle="cpp")
-
-
-def test_pallas_dw_i8_exact(setup, rng):
-    cfg, folded, q, x = setup
-    d = q.blocks[3]["dw"]
-    c = d.w_i8.shape[-1]
-    xi = rng.integers(-127, 128, (2, 16, 16, c)).astype(np.int8)
-    for stride in (1, 2):
-        ref = qoracle.dw3x3_i8(xi, d.w_i8, d.bias_i32, d.m, d.six_q, stride)
-        got = depthwise_i8_pallas(
-            jnp.asarray(xi), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
-            jnp.asarray(d.m), stride, float(d.six_q), True, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(got), ref)
 
 
 def test_int8_top1_close_to_fp32(setup):
@@ -83,91 +68,11 @@ def test_requant_rounding_half_to_even():
     np.testing.assert_array_equal(np.asarray(out)[0], [0, 2, 2, 0, 0])
 
 
-def test_fused_i8_block_exact(setup, rng):
-    from mobilenet_tpu.quant.pallas_block_i8 import separable_block_i8
-
-    cfg, folded, q, x = setup
-    for bi, stride in ((3, 2), (4, 1)):
-        d, p = q.blocks[bi]["dw"], q.blocks[bi]["pw"]
-        c = d.w_i8.shape[-1]
-        xi = rng.integers(-127, 128, (2, 16, 16, c)).astype(np.int8)
-        mid = qoracle.dw3x3_i8(xi, d.w_i8, d.bias_i32, d.m, d.six_q, stride)
-        ref = qoracle.pw_i8(mid, p.w_i8, p.bias_i32, p.m, p.six_q)
-        got = separable_block_i8(
-            jnp.asarray(xi), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
-            jnp.asarray(d.m), jnp.asarray(p.w_i8), jnp.asarray(p.bias_i32),
-            jnp.asarray(p.m), stride, float(d.six_q), float(p.six_q), True,
-            interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(got), ref)
-        if stride == 2:
-            # MXU even-column selection variant must stay EXACT too.
-            got2 = separable_block_i8(
-                jnp.asarray(xi), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
-                jnp.asarray(d.m), jnp.asarray(p.w_i8), jnp.asarray(p.bias_i32),
-                jnp.asarray(p.m), stride, float(d.six_q), float(p.six_q), True,
-                interpret=True, mxu_subsample=True,
-            )
-            np.testing.assert_array_equal(np.asarray(got2), ref)
-
-
-def test_fused_i8_full_model_exact(setup):
-    from mobilenet_tpu.quant.model import _as_device_tree, forward_i8
-
-    cfg, folded, q, x = setup
-    dev = _as_device_tree(q)
-    xi = quantize_input(x)
-    ref = jax.jit(lambda v: forward_i8(dev, v, cfg))(jnp.asarray(xi))
-    got = jax.jit(lambda v: forward_i8(dev, v, cfg, use_fused=True))(jnp.asarray(xi))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_packed_i8_blocks_exact(setup, rng):
-    from mobilenet_tpu.ops.pallas_block_packed import pack, unpack
-    from mobilenet_tpu.quant.pallas_block_packed_i8 import separable_block_packed_i8
-
-    cfg, folded, q, x = setup
-    # alpha=0.25 blocks: narrow channels exercise R=2..16
-    for bi, stride in ((0, 1), (1, 2), (3, 2), (4, 1)):
-        d, p = q.blocks[bi]["dw"], q.blocks[bi]["pw"]
-        cin = d.w_i8.shape[-1]
-        cout = p.w_i8.shape[-1]
-        r = 128 // cin
-        if stride == 2 and (r % 2 or (r // 2) * cout % 128):
-            continue
-        if stride == 1 and r * cout % 128:
-            continue
-        h = 16
-        xi = rng.integers(-127, 128, (2, h, h, cin)).astype(np.int8)
-        if (h * cin) % 128:
-            continue
-        mid = qoracle.dw3x3_i8(xi, d.w_i8, d.bias_i32, d.m, d.six_q, stride)
-        ref = qoracle.pw_i8(mid, p.w_i8, p.bias_i32, p.m, p.six_q)
-        got = unpack(separable_block_packed_i8(
-            pack(jnp.asarray(xi), cin), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
-            jnp.asarray(d.m), jnp.asarray(p.w_i8), jnp.asarray(p.bias_i32),
-            jnp.asarray(p.m), cin, cout, stride, float(d.six_q), float(p.six_q),
-            True, interpret=True,
-        ), cout)
-        np.testing.assert_array_equal(np.asarray(got), ref)
-
-
-def test_fused_i8_full_model_with_packed_exact(setup):
-    from mobilenet_tpu.quant.model import _as_device_tree, forward_i8
-
-    cfg, folded, q, x = setup
-    dev = _as_device_tree(q)
-    xi = quantize_input(x)
-    ref = jax.jit(lambda v: forward_i8(dev, v, cfg))(jnp.asarray(xi))
-    got = jax.jit(lambda v: forward_i8(dev, v, cfg, use_fused=True))(jnp.asarray(xi))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
 @pytest.mark.parametrize("stride,h,c", [(1, 16, 8), (2, 16, 8), (1, 15, 24), (2, 14, 64)])
 def test_depthwise_i8_xla_exact(rng, stride, h, c):
-    """The non-Pallas dw fallback must be integer-exact for any shape/stride —
-    it is the collect/verify-path op, and XLA's grouped conv on TPU was
-    measured NOT bit-reliable (docs/design.md), hence the explicit-tap form."""
+    """The int8 dw op must be integer-exact for any shape/stride; it is
+    written as explicit taps so no grouped-conv algorithm choice can touch
+    the arithmetic."""
     import jax.numpy as jnp
 
     from mobilenet_tpu.quant import ops as qops
@@ -185,38 +90,10 @@ def test_depthwise_i8_xla_exact(rng, stride, h, c):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_int8_channel_padding_exact_logits(rng):
-    """quantize_for_device's channel-padding (alpha=0.75 family) must leave
-    int8 logits bit-identical: zero-padded channels quantize to zero
-    weights/bias and stay zero through every requant."""
-    import jax
-    import jax.numpy as jnp
-
-    from mobilenet_tpu import ModelConfig
-    from mobilenet_tpu.checkpoints import fold_bn, init_params
-    from mobilenet_tpu.quant import quantize
-    from mobilenet_tpu.quant.model import (
-        _as_device_tree, forward_i8, quantize_for_device,
-    )
-    from mobilenet_tpu.quant.quantize import quantize_input
-
-    cfg = ModelConfig(alpha=0.75, resolution=128)
-    folded = fold_bn(init_params(cfg, seed=6), eps=cfg.bn_eps)
-    x = rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
-    x_i8 = jnp.asarray(quantize_input(x))
-
-    base = _as_device_tree(quantize(folded, cfg))
-    padded = _as_device_tree(quantize_for_device(folded, cfg, use_fused=True))
-    ref = np.asarray(jax.jit(lambda v: forward_i8(base, v, cfg))(x_i8))
-    got = np.asarray(jax.jit(
-        lambda v: forward_i8(padded, v, cfg, use_fused=True))(x_i8))
-    np.testing.assert_array_equal(got, ref)
-
-
 def test_bf16_quantized_input_bit_identical(setup):
-    """The production stem path quantizes straight into bf16 integer values
-    (quantize_input_dev(out_dtype=bfloat16)) — logits must be BIT-IDENTICAL
-    to the int8-input path, fused and unfused."""
+    """quantize_input_dev(out_dtype=bfloat16) carries the same integers as
+    the int8 input — the stem reads either and the logits must be
+    BIT-IDENTICAL."""
     from mobilenet_tpu.quant.model import _as_device_tree, forward_i8
     from mobilenet_tpu.quant.quantize import ACT_IN_SCALE
 
@@ -230,60 +107,10 @@ def test_bf16_quantized_input_bit_identical(setup):
                                           out_dtype=jnp.bfloat16))(xj))
     np.testing.assert_array_equal(q_i8.astype(np.float32),
                                   q_bf.astype(np.float32))
-    for fused in (False, True):
-        ref = np.asarray(jax.jit(
-            lambda v: forward_i8(dev, v, cfg, use_fused=fused))(
-                jnp.asarray(q_i8)))
-        got = np.asarray(jax.jit(
-            lambda v: forward_i8(dev, v, cfg, use_fused=fused))(
-                jnp.asarray(q_bf)))
-        np.testing.assert_array_equal(ref, got)
+    ref = np.asarray(jax.jit(lambda v: forward_i8(dev, v, cfg))(
+        jnp.asarray(q_i8)))
+    got = np.asarray(jax.jit(lambda v: forward_i8(dev, v, cfg))(
+        jnp.asarray(q_bf)))
+    np.testing.assert_array_equal(ref, got)
 
 
-def test_dense_block_bf16_carriage_exact(setup, rng):
-    """bf16-carried dense blocks (int8 integers stored as bf16 between
-    blocks) must be BIT-IDENTICAL to the i8-carried baseline, for every
-    (stride, in_dtype, out_dtype) combination."""
-    from mobilenet_tpu.quant.pallas_block_i8 import separable_block_i8
-
-    cfg, folded, q, x = setup
-    b = q.blocks[5]  # cin = cout (stride-1-compatible shapes)
-    d, p = b["dw"], b["pw"]
-    cin = d.w_i8.shape[-1]
-    xi = rng.integers(0, 128, (2, 8, 8, cin)).astype(np.int8)
-    for stride in (1, 2):
-        ref = np.asarray(separable_block_i8(
-            jnp.asarray(xi), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
-            jnp.asarray(d.m), jnp.asarray(p.w_i8), jnp.asarray(p.bias_i32),
-            jnp.asarray(p.m), stride, float(d.six_q), float(p.six_q), True,
-            interpret=True))
-        for in_bf in (False, True):
-            for out_bf in (False, True):
-                if not (in_bf or out_bf):
-                    continue
-                xin = (jnp.asarray(xi).astype(jnp.bfloat16) if in_bf
-                       else jnp.asarray(xi))
-                got = np.asarray(separable_block_i8(
-                    xin, jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
-                    jnp.asarray(d.m), jnp.asarray(p.w_i8),
-                    jnp.asarray(p.bias_i32), jnp.asarray(p.m), stride,
-                    float(d.six_q), float(p.six_q), True, interpret=True,
-                    out_dtype=jnp.bfloat16 if out_bf else jnp.int8,
-                )).astype(np.float32)
-                np.testing.assert_array_equal(ref.astype(np.float32), got)
-
-
-def test_forward_bf16_carriage_exact(setup):
-    """Full fused forward with bf16 carriage enabled == carriage off,
-    bit-for-bit (logits)."""
-    from mobilenet_tpu.quant.model import _as_device_tree, forward_i8
-
-    cfg, folded, q, x = setup
-    dev = _as_device_tree(q)
-    xi = jnp.asarray(quantize_input(x))
-    ref = np.asarray(jax.jit(lambda v: forward_i8(
-        dev, v, cfg, use_fused=True, bf16_carry_max_hw=0))(xi))
-    for carry in (28, 1000):
-        got = np.asarray(jax.jit(lambda v: forward_i8(
-            dev, v, cfg, use_fused=True, bf16_carry_max_hw=carry))(xi))
-        np.testing.assert_array_equal(ref, got)

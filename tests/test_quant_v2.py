@@ -5,7 +5,7 @@ V2 extends V1's fixed-point scheme at exactly one point — the LINEAR
 bottleneck projection needs calibrated signed scales, shared per residual
 chain so the add is a plain saturating int8 add (quant/v2.py module doc).
 These tests pin the scheme host-side and the exactness contract on the
-interpret tier (CLAUDE.md invariants: int8 -> EXACT equality).
+CPU backend (CLAUDE.md invariants: int8 -> EXACT equality).
 """
 
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 V3 is the family V1's fixed-scale and V2's projection-only calibration
 cannot cover — unbounded ReLU, hard-swish, and a mid-block SE gate. These
-tests pin quant/v3.py's three exactness arguments on the interpret tier
+tests pin quant/v3.py's three exactness arguments on the CPU backend
 (CLAUDE.md invariants: int8 -> EXACT equality):
   - named-activation requant twins (f32 real-units detour, round-half-even)
   - the fully-quantized SE gate (integer matmuls, f32 only elementwise)
@@ -145,302 +145,6 @@ def test_pipeline_and_collect_names(qsetup):
     assert "conv1" in acts and "logits" in acts and "head" in acts
     assert "block00_dw" in acts and "block00_se" in acts
 
-def test_fused_i8_bit_identical_to_xla(qsetup):
-    """forward_v3_i8(use_fused=True): whole bottlenecks as int8 Pallas
-    kernels (quant/pallas_ir_v3_i8.py, incl. the quantized SE gate
-    in-kernel) must be BIT-IDENTICAL to the XLA int8 route at the logits
-    — two schedules of one integer program."""
-    import jax.numpy as jnp
-
-    cfg, folded, q, x = qsetup
-    dev = _as_device_tree_v3(q)
-    x_i8 = jnp.asarray(quantize_input(x))
-    lx = np.asarray(forward_v3_i8(dev, x_i8, cfg))
-    lf = np.asarray(forward_v3_i8(dev, x_i8, cfg, use_fused=True))
-    np.testing.assert_array_equal(lx, lf)
-    # ... and on LARGE (different k/se/spatial combinations reach the
-    # kernel; the docs claim both variants, so both get gated).
-    cfg_l = V3Config(variant="large", alpha=1.0, resolution=96)
-    folded_l = fold_bn_v3(init_params_v3(cfg_l, seed=0), eps=cfg_l.bn_eps)
-    dev_l = _as_device_tree_v3(quantize_v3(folded_l, cfg_l, n_calib=4))
-    lx = np.asarray(forward_v3_i8(dev_l, x_i8, cfg_l))
-    lf = np.asarray(forward_v3_i8(dev_l, x_i8, cfg_l, use_fused=True))
-    np.testing.assert_array_equal(lx, lf)
-
-
-def test_fused_i8_kernel_per_block_exact(qsetup):
-    """One eligible SE block through the kernel vs the NumPy oracle's
-    exp->dw->se->prj sequence: exact per element."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.quant.pallas_ir_v3_i8 import (v3_block_pallas_i8,
-                                                     v3_i8_fits)
-    from mobilenet_tpu.quant.v3 import (_dwk_acc_np, _pw_acc_np,
-                                        _requant_named_np, _se_i8_np)
-
-    cfg, folded, q, x = qsetup
-    dev = _as_device_tree_v3(q)
-    # find an SE + expand block that fits at a small batch
-    rng = np.random.default_rng(9)
-    for i, bd in enumerate(cfg.block_defs):
-        blk_q = q.blocks[i]
-        if not (bd.has_expand and bd.se_mid):
-            continue
-        hw_in = cfg.resolution // 2
-        for d in cfg.block_defs[:i]:
-            hw_in //= d.stride
-        if not v3_i8_fits(2, hw_in, hw_in, bd.cin, bd.cexp, bd.cout,
-                          bd.kernel, bd.stride, bd.se_mid):
-            continue
-        x_i8 = rng.integers(-100, 101, (2, hw_in, hw_in, bd.cin)).astype(
-            np.int8)
-        e, d_, p = blk_q["exp"], blk_q["dw"], blk_q["prj"]
-        z = _requant_named_np(_pw_acc_np(x_i8, e.w_i8) + e.bias_i32,
-                              e.a, e.inv_s, bd.act)
-        z = _requant_named_np(
-            _dwk_acc_np(z, d_.w_i8, bd.stride, bd.kernel) + d_.bias_i32,
-            d_.a, d_.inv_s, bd.act)
-        z = _se_i8_np(z, blk_q["se1"], blk_q["se2"])
-        want = _requant_named_np(_pw_acc_np(z, p.w_i8) + p.bias_i32,
-                                 p.a, p.inv_s, "linear")
-        if bd.has_res:
-            want = np.clip(want.astype(np.int32) + x_i8.astype(np.int32),
-                           -128, 127).astype(np.int8)
-        dblk = dev["blocks"][i]
-        got = v3_block_pallas_i8(
-            jnp.asarray(x_i8), dblk["exp"], dblk["dw"], dblk["prj"],
-            k=bd.kernel, stride=bd.stride, act=bd.act,
-            se1=dblk["se1"], se2=dblk["se2"], residual=bd.has_res)
-        np.testing.assert_array_equal(np.asarray(got), want)
-        return
-    pytest.fail("no eligible SE block found in the schedule")
-
-
-def test_fused_i8_pipeline_matches(qsetup):
-    from mobilenet_tpu.quant.v3 import Int8PipelineV3
-
-    cfg, folded, q, x = qsetup
-    rng = np.random.default_rng(10)
-    imgs = rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
-    a = Int8PipelineV3(cfg, params=folded).run_batch(imgs)
-    b = Int8PipelineV3(cfg, params=folded, use_fused=True).run_batch(imgs)
-    np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize(
-    "n,h,cin,e,cout,stride,res,act,want_mode",
-    [
-        (2, 112, 16, 64, 24, 2, False, "relu", "rows"),   # blk1-L class
-        (2, 56, 24, 144, 24, 1, True, "relu", "rows"),    # s1 residual rows
-        (1, 48, 24, 72, 24, 1, True, "hswish", "whole"),
-    ],
-)
-def test_fused_i8_rows_mode_exact(n, h, cin, e, cout, stride, res, act,
-                                  want_mode):
-    """Row-tiled int8 V3 kernel (k=3, no SE — V3-Large's big-spatial
-    blocks): named-act staging through the float rows geometry, exact."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.ops.pallas_ir_v3 import _mode as v3mode
-    from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
-    from mobilenet_tpu.quant.v3 import (_dwk_acc_np, _pw_acc_np,
-                                        _quant_named, _requant_named_np)
-
-    rng = np.random.default_rng(2)
-    assert v3mode(n, h, h, cin, e, cout, 3, stride, 0, 2)[0] == want_mode
-    qe = _quant_named(rng.normal(0, cin ** -0.5, (cin, e)).astype(
-        np.float32), rng.normal(0, 0.1, (e,)).astype(np.float32), 1,
-        np.float32(0.05), np.float32(0.08))
-    qd = _quant_named(rng.normal(0, 0.3, (3, 3, 1, e)).astype(np.float32),
-                      rng.normal(0, 0.1, (e,)).astype(np.float32), 3,
-                      np.float32(0.08), np.float32(0.07), k_taps=9)
-    qp = _quant_named(rng.normal(0, e ** -0.5, (e, cout)).astype(
-        np.float32), rng.normal(0, 0.1, (cout,)).astype(np.float32), 1,
-        np.float32(0.07), np.float32(0.05))
-    x_i8 = rng.integers(-100, 101, (n, h, h, cin)).astype(np.int8)
-    z = _requant_named_np(_pw_acc_np(x_i8, qe.w_i8) + qe.bias_i32,
-                          qe.a, qe.inv_s, act)
-    z = _requant_named_np(_dwk_acc_np(z, qd.w_i8, stride, 3) + qd.bias_i32,
-                          qd.a, qd.inv_s, act)
-    want = _requant_named_np(_pw_acc_np(z, qp.w_i8) + qp.bias_i32,
-                             qp.a, qp.inv_s, "linear")
-    if res:
-        want = np.clip(want.astype(np.int32) + x_i8.astype(np.int32),
-                       -128, 127).astype(np.int8)
-    lay = lambda l: {"w": jnp.asarray(l.w_i8),  # noqa: E731
-                     "b": jnp.asarray(l.bias_i32),
-                     "a": jnp.asarray(l.a), "inv_s": float(l.inv_s)}
-    got = v3_block_pallas_i8(jnp.asarray(x_i8), lay(qe), lay(qd), lay(qp),
-                             k=3, stride=stride, act=act, residual=res)
-    np.testing.assert_array_equal(np.asarray(got), want)
-
-
-@pytest.mark.parametrize("carry_in,carry_out", [(True, False), (True, True),
-                                                (False, True)])
-def test_fused_i8_bf16_carriage_rows_exact(carry_in, carry_out):
-    """bf16 integer carriage through the rows kernel (block1-L class):
-    same integers as the int8 carrier, bit-for-bit (design.md §8 —
-    carriage removes the int8 4D-element-window lowering that measured
-    6x slower at 112² on chip)."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
-    from mobilenet_tpu.quant.v3 import (_dwk_acc_np, _pw_acc_np,
-                                        _quant_named, _requant_named_np)
-
-    rng = np.random.default_rng(3)
-    n, h, cin, e, cout, stride = 2, 112, 16, 64, 24, 2
-    qe = _quant_named(rng.normal(0, cin ** -0.5, (cin, e)).astype(
-        np.float32), rng.normal(0, 0.1, (e,)).astype(np.float32), 1,
-        np.float32(0.05), np.float32(0.08))
-    qd = _quant_named(rng.normal(0, 0.3, (3, 3, 1, e)).astype(np.float32),
-                      rng.normal(0, 0.1, (e,)).astype(np.float32), 3,
-                      np.float32(0.08), np.float32(0.07), k_taps=9)
-    qp = _quant_named(rng.normal(0, e ** -0.5, (e, cout)).astype(
-        np.float32), rng.normal(0, 0.1, (cout,)).astype(np.float32), 1,
-        np.float32(0.07), np.float32(0.05))
-    x_i8 = rng.integers(-100, 101, (n, h, h, cin)).astype(np.int8)
-    z = _requant_named_np(_pw_acc_np(x_i8, qe.w_i8) + qe.bias_i32,
-                          qe.a, qe.inv_s, "relu")
-    z = _requant_named_np(_dwk_acc_np(z, qd.w_i8, stride, 3) + qd.bias_i32,
-                          qd.a, qd.inv_s, "relu")
-    want = _requant_named_np(_pw_acc_np(z, qp.w_i8) + qp.bias_i32,
-                             qp.a, qp.inv_s, "linear")
-    lay = lambda l: {"w": jnp.asarray(l.w_i8),  # noqa: E731
-                     "b": jnp.asarray(l.bias_i32),
-                     "a": jnp.asarray(l.a), "inv_s": float(l.inv_s)}
-    xin = jnp.asarray(x_i8)
-    if carry_in:
-        xin = xin.astype(jnp.bfloat16)
-    out_dt = jnp.bfloat16 if carry_out else jnp.int8
-    got = v3_block_pallas_i8(xin, lay(qe), lay(qd), lay(qp), k=3,
-                             stride=stride, act="relu", residual=False,
-                             out_dtype=out_dt)
-    assert got.dtype == out_dt
-    np.testing.assert_array_equal(
-        np.asarray(got).astype(np.int32), want.astype(np.int32))
-
-
-@pytest.mark.parametrize("carry,h", [(False, 32), (True, 32), (True, 80)])
-def test_fused_i8_identity_expand_exact(carry, h):
-    """No-expand blocks (V3 block 0) fuse via the exact identity
-    expansion for either carrier dtype — whole mode at 32, rows at 80
-    (the block-0-at-112² class scaled to suite speed)."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
-    from mobilenet_tpu.quant.v3 import (_dwk_acc_np, _pw_acc_np,
-                                        _quant_named, _requant_named_np)
-
-    rng = np.random.default_rng(4)
-    n, c = 2, 16
-    qd = _quant_named(rng.normal(0, 0.3, (3, 3, 1, c)).astype(np.float32),
-                      rng.normal(0, 0.1, (c,)).astype(np.float32), 3,
-                      np.float32(0.05), np.float32(0.07), k_taps=9)
-    qp = _quant_named(rng.normal(0, c ** -0.5, (c, c)).astype(np.float32),
-                      rng.normal(0, 0.1, (c,)).astype(np.float32), 1,
-                      np.float32(0.07), np.float32(0.05))
-    x_i8 = rng.integers(-100, 101, (n, h, h, c)).astype(np.int8)
-    z = _requant_named_np(_dwk_acc_np(x_i8, qd.w_i8, 1, 3) + qd.bias_i32,
-                          qd.a, qd.inv_s, "relu")
-    want = _requant_named_np(_pw_acc_np(z, qp.w_i8) + qp.bias_i32,
-                             qp.a, qp.inv_s, "linear")
-    want = np.clip(want.astype(np.int32) + x_i8.astype(np.int32),
-                   -128, 127).astype(np.int8)
-    lay = lambda l: {"w": jnp.asarray(l.w_i8),  # noqa: E731
-                     "b": jnp.asarray(l.bias_i32),
-                     "a": jnp.asarray(l.a), "inv_s": float(l.inv_s)}
-    xin = jnp.asarray(x_i8)
-    if carry:
-        xin = xin.astype(jnp.bfloat16)
-    got = v3_block_pallas_i8(xin, None, lay(qd), lay(qp), k=3, stride=1,
-                             act="relu", residual=True)
-    np.testing.assert_array_equal(np.asarray(got), want)
-
-
-def test_fused_plan_v3_carriage_chain():
-    """The carry plan: conv1 emits bf16 only when block 0 accepts it;
-    producer/consumer dtypes chain; the stretch closes back to int8
-    before the first small-spatial block (CARRY_MIN_H)."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.quant.v3 import _as_device_tree_v3, _fused_plan_v3
-
-    cfg = V3Config(variant="large", alpha=1.0, resolution=224)
-    folded = fold_bn_v3(init_params_v3(cfg, seed=0), eps=cfg.bn_eps)
-    dev = _as_device_tree_v3(quantize_v3(folded, cfg, n_calib=4))
-    cd, plan = _fused_plan_v3(dev, cfg, 256)
-    assert cd == jnp.bfloat16
-    # every in_dtype equals its producer's out_dtype
-    prev = cd
-    for fused, in_dt, out_dt in plan:
-        assert in_dt == prev
-        prev = out_dt
-    assert plan[-1][2] == jnp.int8  # the tail ops receive int8
-    # The carry stretch is bounded by CARRY_MIN_H (measured on chip,
-    # tools/ab_v3_carry.py — currently 28): every block whose input
-    # spatial is below it receives int8; the large-spatial prefix carries.
-    from mobilenet_tpu.quant.v3 import CARRY_MIN_H
-
-    h = cfg.resolution // 2
-    spatials = []
-    for bd in cfg.block_defs:
-        spatials.append(h)
-        h //= bd.stride
-    for (fused, in_dt, out_dt), s in zip(plan, spatials):
-        if s < CARRY_MIN_H:
-            assert in_dt == jnp.int8, (s, in_dt)
-    assert [p[1] for p in plan[:4]] == [jnp.bfloat16] * 4  # 112²/56² carry
-
-
-def test_wpad_mode_i8_exact():
-    """The padded-width whole mode (block-12 class: h_out*w_out odd busts
-    the sublane rule at full ep) — exact for both carriers, incl. SE."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.ops.pallas_ir_v3 import _mode as v3mode
-    from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
-    from mobilenet_tpu.quant.v3 import (_dwk_acc_np, _pw_acc_np,
-                                        _quant_named, _requant_named_np,
-                                        _se_i8_np)
-
-    rng = np.random.default_rng(5)
-    n, h, cin, e, cout, k, s, se = 32, 14, 64, 512, 128, 5, 2, 128
-    assert v3mode(n, h, h, cin, e, cout, k, s, se, 2)[0] == "wpad"
-    sc = np.float32(0.05)
-    qe = _quant_named(rng.normal(0, cin ** -0.5, (cin, e)).astype(
-        np.float32), rng.normal(0, 0.1, (e,)).astype(np.float32), 1, sc, sc)
-    qd = _quant_named(rng.normal(0, 0.3, (k, k, 1, e)).astype(np.float32),
-                      rng.normal(0, 0.1, (e,)).astype(np.float32), 3,
-                      sc, sc, k_taps=k * k)
-    qp = _quant_named(rng.normal(0, e ** -0.5, (e, cout)).astype(
-        np.float32), rng.normal(0, 0.1, (cout,)).astype(np.float32), 1,
-        sc, sc)
-    q1 = _quant_named(rng.normal(0, e ** -0.5, (e, se)).astype(np.float32),
-                      rng.normal(0, 0.1, (se,)).astype(np.float32), 1,
-                      sc, sc)
-    q2 = _quant_named(rng.normal(0, se ** -0.5, (se, e)).astype(np.float32),
-                      rng.normal(0, 0.1, (e,)).astype(np.float32), 1,
-                      sc, sc)
-    x_i8 = rng.integers(-100, 101, (n, h, h, cin)).astype(np.int8)
-    z = _requant_named_np(_pw_acc_np(x_i8, qe.w_i8) + qe.bias_i32,
-                          qe.a, qe.inv_s, "hswish")
-    z = _requant_named_np(_dwk_acc_np(z, qd.w_i8, s, k) + qd.bias_i32,
-                          qd.a, qd.inv_s, "hswish")
-    z = _se_i8_np(z, q1, q2)
-    want = _requant_named_np(_pw_acc_np(z, qp.w_i8) + qp.bias_i32,
-                             qp.a, qp.inv_s, "linear")
-    lay = lambda l: {"w": jnp.asarray(l.w_i8),  # noqa: E731
-                     "b": jnp.asarray(l.bias_i32),
-                     "a": jnp.asarray(l.a), "inv_s": float(l.inv_s)}
-    for carrier in (jnp.int8, jnp.bfloat16):
-        xin = jnp.asarray(x_i8).astype(carrier)
-        got = v3_block_pallas_i8(xin, lay(qe), lay(qd), lay(qp), k=k,
-                                 stride=s, act="hswish", se1=lay(q1),
-                                 se2=lay(q2), residual=False)
-        np.testing.assert_array_equal(np.asarray(got), want)
-
-
 @pytest.mark.parametrize("k,stride,h", [(3, 2, 12), (5, 2, 12), (3, 1, 9),
                                         (5, 1, 9), (3, 2, 14), (5, 2, 10)])
 def test_dwk_eo_split_matches_numpy(k, stride, h):
@@ -461,87 +165,3 @@ def test_dwk_eo_split_matches_numpy(k, stride, h):
         np.testing.assert_array_equal(got, want)
 
 
-def test_xla_fallback_carriage_seam_exact():
-    """V3-Small at 192: b0 does NOT fit the fused int8 kernel (the flagship
-    224 situation, scaled down), so the fused plan routes it through the
-    upgraded XLA fallback with bf16 carriage in AND out (conv1 -> b0 ->
-    fused b1). The routed forward must stay bit-equal to the pure-XLA
-    int8 oracle path."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.quant.ops import quantize_input_dev
-    from mobilenet_tpu.quant.quantize import ACT_IN_SCALE
-    from mobilenet_tpu.quant.v3 import (_as_device_tree_v3, _fused_plan_v3,
-                                        forward_v3_i8, quantize_v3)
-
-    cfg = V3Config(variant="small", alpha=1.0, resolution=192)
-    folded = fold_bn_v3(init_params_v3(cfg, seed=3), eps=cfg.bn_eps)
-    dev = _as_device_tree_v3(quantize_v3(folded, cfg, n_calib=4))
-    cd, plan = _fused_plan_v3(dev, cfg, 2)
-    # the seam this test exists for: b0 unfused yet bf16-carried in/out
-    assert not plan[0][0] and cd == jnp.bfloat16 and plan[0][2] == jnp.bfloat16
-    assert plan[1][0]  # b1 fused, receiving the bf16 carrier
-
-    rng = np.random.default_rng(9)
-    x = rng.uniform(-1, 1, (2, 192, 192, 3)).astype(np.float32)
-    x_q = quantize_input_dev(jnp.asarray(x), ACT_IN_SCALE,
-                             out_dtype=jnp.bfloat16)
-    want = np.asarray(forward_v3_i8(dev, x_q, cfg, use_fused=False))
-    got = np.asarray(forward_v3_i8(dev, x_q, cfg, use_fused=True))
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("h,cin,se,cout", [(24, 16, 8, 16), (16, 32, 16, 32),
-                                           (112, 16, 8, 16)])
-def test_packed_s2_se_kernel_exact(h, cin, se, cout):
-    """The lane-packed stride-2 SE kernel (V3-Small block-0 shape) is
-    bit-equal to the XLA named sequence dw-requant -> SE -> linear-prj for
-    both out carriers, including the flagship 112² geometry."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.ops.pallas_block_packed import pack
-    from mobilenet_tpu.quant.pallas_block_packed_i8 import (
-        packed_block_i8_named_s2_se)
-    from mobilenet_tpu.quant.v3 import (_quant_named, _requant_named_np,
-                                        _dwk_acc_np, _pw_acc_np, _se_i8_np)
-
-    rng = np.random.default_rng(h + cin)
-    sc = np.float32(0.04)
-    qd = _quant_named(rng.normal(0, 0.3, (3, 3, 1, cin)).astype(np.float32),
-                      rng.normal(0, 0.1, (cin,)).astype(np.float32), 3,
-                      sc, sc, k_taps=9)
-    q1 = _quant_named(rng.normal(0, cin ** -0.5, (cin, se)).astype(
-        np.float32), rng.normal(0, 0.1, (se,)).astype(np.float32), 1, sc, sc)
-    q2 = _quant_named(rng.normal(0, se ** -0.5, (se, cin)).astype(
-        np.float32), rng.normal(0, 0.1, (cin,)).astype(np.float32), 1,
-        sc, sc)
-    qp = _quant_named(rng.normal(0, cin ** -0.5, (cin, cout)).astype(
-        np.float32), rng.normal(0, 0.1, (cout,)).astype(np.float32), 1,
-        sc, sc)
-    x_i8 = rng.integers(-100, 101, (2, h, h, cin)).astype(np.int8)
-
-    z = _requant_named_np(_dwk_acc_np(x_i8, qd.w_i8, 2, 3) + qd.bias_i32,
-                          qd.a, qd.inv_s, "relu")
-    z = _se_i8_np(z, q1, q2)
-    want = _requant_named_np(_pw_acc_np(z, qp.w_i8) + qp.bias_i32,
-                             qp.a, qp.inv_s, "linear")
-
-    r = 128 // cin
-    cm = 128 // (r // 2)
-    cout_p = -(-cout // cm) * cm
-    pw_w = np.pad(qp.w_i8, ((0, 0), (0, cout_p - cout)))
-    pw_b = np.pad(qp.bias_i32, (0, cout_p - cout))
-    pw_a = np.pad(qp.a, (0, cout_p - cout))
-    xb = pack(jnp.asarray(x_i8).astype(jnp.bfloat16), cin)
-    for out_dt in ("int8", "bfloat16"):
-        out = packed_block_i8_named_s2_se(
-            xb, jnp.asarray(qd.w_i8), jnp.asarray(qd.bias_i32),
-            jnp.asarray(qd.a),
-            jnp.asarray(q1.w_i8), jnp.asarray(q1.bias_i32), jnp.asarray(q1.a),
-            jnp.asarray(q2.w_i8), jnp.asarray(q2.bias_i32), jnp.asarray(q2.a),
-            jnp.asarray(pw_w), jnp.asarray(pw_b), jnp.asarray(pw_a),
-            cin, cout_p, "relu", float(qd.inv_s), float(q1.inv_s),
-            float(qp.inv_s), out_dtype=out_dt)
-        got = np.asarray(out, np.float32).reshape(2, h // 2, -1, cout_p)
-        np.testing.assert_array_equal(got[..., :cout], want.astype(np.float32))
-        assert (got[..., cout:] == 0).all()

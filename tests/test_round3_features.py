@@ -1,16 +1,10 @@
-"""Round-3 feature tests: TP guard, full-grid regress helpers, structured
-synthetic eval images, routing-equivalence verify mode."""
-
-import os
-import sys
+"""Round-3 feature tests: TP guard, structured synthetic eval images,
+warmup."""
 
 import numpy as np
 import pytest
 
-from mobilenet_tpu import ModelConfig, cli
-
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tools"))
+from mobilenet_tpu import ModelConfig
 
 
 # ---------------------------------------------------------------------------
@@ -50,35 +44,6 @@ def test_pipeline_accepts_dp_mesh():
 
 
 # ---------------------------------------------------------------------------
-# regress helpers
-# ---------------------------------------------------------------------------
-
-
-def test_regress_variant_roundtrip():
-    from regress import variant_to_pair
-
-    # third element: the V3 minimalistic flag (False for V1/V2 rows)
-    assert variant_to_pair("mobilenet_v1_0.25_128") == (0.25, 128, False)
-    assert variant_to_pair("mobilenet_v1_1_224") == (1.0, 224, False)
-    cfg = ModelConfig(alpha=0.75, resolution=192)
-    assert variant_to_pair(cfg.variant_name()) == (0.75, 192, False)
-    assert variant_to_pair("mobilenet_v3_small_1_224") == (1.0, 224, False)
-    assert variant_to_pair("mobilenet_v3_large_min_1_224") == (
-        1.0, 224, True)
-
-
-def test_regress_row_tolerance_tiers():
-    from regress import row_tolerance
-
-    # 0.25-128 recorded ~273k img/s at batch 256 -> ~0.94 ms/batch: small tier
-    assert row_tolerance(273_428, 256) == 0.30
-    # 1.0-224 recorded ~27.3k -> ~9.4 ms/batch: large tier
-    assert row_tolerance(27_264, 256) == 0.08
-    # ~3 ms/batch: middle tier
-    assert row_tolerance(256 / 3e-3, 256) == 0.15
-
-
-# ---------------------------------------------------------------------------
 # structured synthetic images
 # ---------------------------------------------------------------------------
 
@@ -111,30 +76,6 @@ def test_eval_structured_images_agree():
     images = synth_images(cfg, 8, seed=11)
     report = evaluate_agreement(cfg, images, batch_size=4, tie_margin=1e-3)
     assert report["top1_agreement_tie_aware"] == 1.0
-
-
-# ---------------------------------------------------------------------------
-# routing-equivalence verify mode (CLI)
-# ---------------------------------------------------------------------------
-
-
-def test_cli_verify_routing_fused(capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["verify", "--alpha", "0.25", "--res", "64", "--batch", "2",
-                  "--routing", "fused", "--oracle", "numpy"])
-    assert e.value.code == 0
-    out = capsys.readouterr().out
-    assert "ROUTING VERIFY OK" in out
-    assert "routing(fused) == routing(xla): 2/2" in out
-
-
-def test_cli_verify_routing_mixed_bf16(capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["verify", "--alpha", "0.25", "--res", "64", "--batch", "2",
-                  "--routing", "mixed", "--dtype", "bfloat16",
-                  "--oracle", "numpy"])
-    assert e.value.code == 0
-    assert "ROUTING VERIFY OK" in capsys.readouterr().out
 
 
 def test_cli_warmup_precompiles_and_exits_clean(monkeypatch, capsys):

@@ -1,10 +1,7 @@
 """Round-3 advisor-fix regression tests.
 
-Covers ADVICE.md round 2: retry narrowed to device errors (serving.py),
-NaN-on-failure differenced chains (timing.py), the chain-systolic VMEM
-base-case guard (pallas_chain_systolic.py), margin-aware eval ties
-(runtime/eval.py), and the element-size-aware int8 tile planner
-(quant/pallas_block_i8.py).
+Covers ADVICE.md round 2: retry narrowed to device errors (serving.py) and
+margin-aware eval ties (runtime/eval.py).
 """
 
 import asyncio
@@ -70,103 +67,6 @@ def test_retryable_predicate():
 
 
 # ---------------------------------------------------------------------------
-# timing: differenced chains can't publish 0.0 on noise
-# ---------------------------------------------------------------------------
-
-
-def test_differenced_chain_nan_on_nonpositive():
-    """When the 'long' chain measures no slower than the short one (pure
-    noise), the helper must return NaN, never 0.0."""
-    import time
-
-    from mobilenet_tpu.utils.timing import differenced_chain_ms
-
-    def make_chain(length):
-        # Short chain strictly SLOWER than the long one -> difference is
-        # negative deterministically (equal sleeps would race scheduler
-        # noise on a loaded machine and flake).
-        delay = 0.005 if length == 4 else 0.001
-
-        def fn(x):
-            time.sleep(delay)
-            return x, np.zeros(())
-
-        return fn
-
-    ms = differenced_chain_ms(make_chain, np.zeros(1), 4, reps=1)
-    assert ms != ms  # NaN
-
-
-def test_differenced_chain_measures_real_work():
-    import time
-
-    from mobilenet_tpu.utils.timing import differenced_chain_ms
-
-    per_step_ms = 2.0
-
-    def make_chain(length):
-        def fn(x):
-            time.sleep(per_step_ms * length / 1e3)
-            return x, np.zeros(())
-
-        return fn
-
-    ms = differenced_chain_ms(make_chain, np.zeros(1), 4, reps=2)
-    assert abs(ms - per_step_ms) < 1.0
-
-
-# ---------------------------------------------------------------------------
-# chain-systolic: VMEM base-case guard
-# ---------------------------------------------------------------------------
-
-
-def test_chain_fits_rejects_oversized_base_case():
-    from mobilenet_tpu.ops.pallas_chain_systolic import VMEM_CAP, _vmem_est, chain_fits
-
-    # The production 14x14x512 five-block stretch must stay eligible.
-    assert chain_fits(14, 14, 512, 5, 2)
-    # A large-spatial, wide-channel window must be rejected at bn=1.
-    assert not chain_fits(112, 112, 512, 5, 2)
-    assert _vmem_est(1, 112, 112, 512, 5, 2) >= VMEM_CAP
-
-
-def test_chain_systolic_raises_instead_of_crashing_device():
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.ops.pallas_chain_systolic import chain_systolic
-
-    c, k = 512, 3
-    x = jnp.zeros((1, 112, 112, c), jnp.bfloat16)
-    dw_ws = jnp.zeros((k, 3, 3, c), jnp.bfloat16)
-    dw_bs = jnp.zeros((k, c), jnp.bfloat16)
-    pw_ws = jnp.zeros((k, c, c), jnp.bfloat16)
-    pw_bs = jnp.zeros((k, c), jnp.bfloat16)
-    with pytest.raises(ValueError, match="not chain-eligible"):
-        chain_systolic(x, dw_ws, dw_bs, pw_ws, pw_bs, True)
-
-
-def test_routing_skips_unfittable_chain(monkeypatch):
-    """With the chain flag forced on at a chain-ineligible spatial size, the
-    model must silently fall back to per-block kernels (and still match the
-    xla routing), not crash."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.checkpoints import fold_bn, init_params, to_device
-    from mobilenet_tpu.models import mobilenet_v1
-    from mobilenet_tpu.ops import pallas_chain_systolic as pcs
-
-    monkeypatch.setattr(pcs, "CHAIN_SYSTOLIC_F", True)
-    cfg = ModelConfig(alpha=1.0, resolution=64, compute_dtype="float32")
-    params = to_device(fold_bn(init_params(cfg, seed=0), eps=cfg.bn_eps))
-    x = jnp.asarray(
-        np.random.default_rng(0).uniform(-1, 1, (1, 64, 64, 3)), jnp.float32)
-    fused = mobilenet_v1.forward(params, x, cfg, dw_backend="fused")
-    ref = mobilenet_v1.forward(params, x, cfg, dw_backend="xla")
-    np.testing.assert_allclose(np.asarray(fused), np.asarray(ref),
-                               atol=2e-4, rtol=2e-3)
-
-
-# ---------------------------------------------------------------------------
 # eval: margin-aware near-tie handling
 # ---------------------------------------------------------------------------
 
@@ -214,43 +114,6 @@ def test_eval_near_tie_classification(monkeypatch):
     assert report["top1_agreement_tie_aware"] == 0.5
 
 
-# ---------------------------------------------------------------------------
-# int8 tile planner: element-size aware
-# ---------------------------------------------------------------------------
-
-
-def test_pick_tiles_i8_itemsize():
-    from mobilenet_tpu.quant.pallas_block_i8 import pick_tiles_i8
-
-    # int8 path: unchanged vs the hw-measured calibration.
-    base = pick_tiles_i8(256, 14, 14, 512, 512, 1)
-    assert base == pick_tiles_i8(256, 14, 14, 512, 512, 1, in_itemsize=1)
-    # bf16-carried input can only shrink tiles, never grow them.
-    bn2, th2 = pick_tiles_i8(256, 14, 14, 512, 512, 1, in_itemsize=2)
-    assert bn2 * th2 <= base[0] * base[1]
-
-
-def test_bf16_carry_still_bit_exact():
-    """forward_i8 with bf16 carriage must stay bit-identical to the int8
-    store path (interpret tier)."""
-    import jax.numpy as jnp
-
-    from mobilenet_tpu.checkpoints import fold_bn, init_params
-    from mobilenet_tpu.quant import ops as qops
-    from mobilenet_tpu.quant.model import _as_device_tree, forward_i8
-    from mobilenet_tpu.quant.quantize import ACT_IN_SCALE, quantize
-
-    cfg = ModelConfig(alpha=0.25, resolution=64)
-    folded = fold_bn(init_params(cfg, seed=0), eps=cfg.bn_eps)
-    dev = _as_device_tree(quantize(folded, cfg))
-    rng = np.random.default_rng(0)
-    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
-    x_q = qops.quantize_input_dev(jnp.asarray(x), ACT_IN_SCALE)
-    a = forward_i8(dev, x_q, cfg, use_fused=True, bf16_carry_max_hw=0)
-    b = forward_i8(dev, x_q, cfg, use_fused=True, bf16_carry_max_hw=32)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_eval_int8_forces_strict_tie_margin(monkeypatch, capsys):
     """`cli eval --int8` must gate on EXACT top-1 agreement: int8 logits are
     bit-identical to the oracle by contract, so a near-tie credit would let
@@ -278,83 +141,3 @@ def test_eval_int8_forces_strict_tie_margin(monkeypatch, capsys):
     assert seen["tie_margin"] == 0.0  # --tie-margin 0.5 overridden for int8
 
 
-def test_autotune_latency_xla_tree_is_unpadded(monkeypatch):
-    """Latency-mode autotune must time 'xla' on the UNPADDED tree it ships
-    with (padding is bit-neutral but not time-neutral; review finding)."""
-    from mobilenet_tpu.runtime import autotune as at
-
-    cfg = ModelConfig(alpha=0.75, resolution=64)  # 0.75: padding-needing
-    seen = {}
-
-    def fake_latency(config, params, cand, dtype, chain_len=50):
-        seen[cand] = params["conv1"]["w"].shape[-1]  # stem out channels
-        return 1.0
-
-    monkeypatch.setattr(at, "_float_latency_ms", fake_latency)
-    at.autotune_backend(cfg, batch_size=1, mode="latency",
-                        candidates=("xla", "fused"))
-    assert seen["xla"] == 24    # alpha 0.75 stem, unpadded
-    assert seen["fused"] == 32  # padded to the lane-friendly width
-
-
-def test_autotune_latency_int8_xla_tree_is_unpadded(monkeypatch):
-    from mobilenet_tpu.runtime import autotune as at
-
-    cfg = ModelConfig(alpha=0.75, resolution=64)
-    seen = {}
-
-    def fake_latency(config, dev, cand, chain_len=50):
-        seen[cand] = dev["conv1"]["w"].shape[-1]
-        return 1.0
-
-    monkeypatch.setattr(at, "_int8_latency_ms", fake_latency)
-    at.autotune_backend(cfg, batch_size=1, mode="latency", int8=True,
-                        candidates=("xla", "fused"))
-    assert seen["xla"] == 24
-    assert seen["fused"] == 32
-
-
-def test_resolve_int8_fused_crossover():
-    """"auto" = the measured v5e crossovers: fused from batch 2 everywhere;
-    at batch 1 family-dependent since the round-4 kernels (2026-08-20
-    re-race: fused wins v2/v3small, xla keeps v3large) — TPU only (CPU
-    would run Pallas in interpret mode)."""
-    from mobilenet_tpu.quant.quantize import resolve_int8_fused
-
-    import jax
-
-    on_tpu = jax.default_backend() == "tpu"
-    assert resolve_int8_fused("auto", 1) is False  # no family: xla at b1
-    assert resolve_int8_fused("auto", 1, family="v3large") is False
-    assert resolve_int8_fused("auto", 1, family="v3small") is on_tpu
-    assert resolve_int8_fused("auto", 1, family="v2") is on_tpu
-    assert resolve_int8_fused("auto", 2) is on_tpu
-    assert resolve_int8_fused("auto", 256) is on_tpu
-    # explicit bools pass through regardless of backend/batch
-    assert resolve_int8_fused(True, 1) is True
-    assert resolve_int8_fused(False, 256) is False
-
-
-def test_int8_family_latency_race_cpu():
-    """The batch-1 int8 family race runs (CPU: xla candidate only) and
-    returns finite latencies — the path NotImplementedError'd before."""
-    from mobilenet_tpu.models.mobilenet_v2 import V2Config
-    from mobilenet_tpu.runtime.autotune import autotune_backend
-
-    cfg = V2Config(alpha=0.35, resolution=32)
-    best, results = autotune_backend(cfg, batch_size=1, mode="latency",
-                                     int8=True)
-    assert best in results and results[best] == results[best]
-
-
-def test_routing_gate_scale_aware_bf16():
-    """_verify_routing's bf16 gate: atol grows with logits absmax and the
-    oracle anchor uses RMS (golden constants; design.md §8)."""
-    from mobilenet_tpu.utils import golden
-
-    assert golden.ROUTING_BF16_ATOL == pytest.approx(6e-2)
-    # at V3-Large-224's measured absmax 41.5 the scale term dominates and
-    # covers the measured 0.875 chip divergence with ~2x headroom
-    assert golden.ROUTING_BF16_REL * 41.5 > 2 * 0.875 / 2
-    assert golden.ROUTING_ANCHOR_FACTOR >= 1.5
-    assert golden.BF16_TIE_MARGIN["v3"] >= 0.02

@@ -1,86 +1,8 @@
-"""Round-5 fixes: host-capacity classes for host-coupled metrics (VERDICT r4
-weak #4/#5) and the keras-3 wrong-family diagnostics (ADVICE r4 items 1-2)."""
-
-import os
-import sys
+"""Round-5 fixes: the keras-3 wrong-family diagnostics (ADVICE r4 items
+1-2) and the folded int8 requant order."""
 
 import numpy as np
 import pytest
-
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tools"))
-
-BAND = {"rtt_ms_max": 60.0, "h2d_gbps_min": 0.02, "h2d_class_hi_min": 0.04}
-
-
-class TestH2dClass:
-    def test_classes(self):
-        from _bench_common import h2d_class
-
-        mk = lambda g: {"device": "tpu", "h2d_gbps": g}
-        assert h2d_class(mk(0.079), BAND) == "hi"
-        assert h2d_class(mk(0.04), BAND) == "hi"
-        assert h2d_class(mk(0.035), BAND) == "lo"
-        assert h2d_class(mk(0.02), BAND) == "lo"
-        assert h2d_class(mk(0.007), BAND) == "degraded"
-
-    def test_non_tpu_is_na(self):
-        from _bench_common import h2d_class
-
-        assert h2d_class({"device": "cpu"}, BAND) == "na"
-
-    def test_band_file_has_class_threshold(self):
-        from _bench_common import load_health_band
-
-        band = load_health_band()
-        assert band is not None
-        assert band["h2d_class_hi_min"] > band["h2d_gbps_min"]
-
-
-class TestHostCoupledFlags:
-    """VERDICT r4 #6 acceptance: a faked low-capacity stamp must flag the
-    e2e/serving rows recorded at high capacity."""
-
-    def _rows(self):
-        return [
-            ("bench_contract e2e",
-             {"tunnel_health": {"h2d_class": "hi"},
-              "e2e_images_per_sec_with_host_transfer": 249.5}),
-            ("serving v1 bf16 tiered s64",
-             {"h2d_class": "hi", "images_per_sec": 232.6}),
-        ]
-
-    def test_low_capacity_stamp_flags_hi_rows(self):
-        from regress import host_coupled_flags
-
-        flags = host_coupled_flags("lo", self._rows())
-        assert len(flags) == 2
-        assert all("NOT comparable" in f for f in flags)
-
-    def test_same_class_passes(self):
-        from regress import host_coupled_flags
-
-        assert host_coupled_flags("hi", self._rows()) == []
-
-    def test_unstamped_row_flagged(self):
-        from regress import host_coupled_flags
-
-        flags = host_coupled_flags(
-            "hi", [("serving old", {"images_per_sec": 63.5})])
-        assert len(flags) == 1 and "UNSTAMPED" in flags[0]
-
-    def test_recorded_serving_rows_carry_arm(self):
-        """Every v3small round-4 row must now be arm-labeled (weak #5)."""
-        import json
-
-        path = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "benchmarks", "serving_v5e.jsonl")
-        rows = [json.loads(l) for l in open(path) if l.strip()]
-        v3s = [r for r in rows
-               if r.get("variant") == "mobilenet_v3_small_1_224"]
-        assert len(v3s) >= 6
-        assert all("arm" in r for r in v3s)
-        assert all("round 3" not in r.get("note", "") for r in v3s)
 
 
 class TestKeras3LayoutDiagnostics:
@@ -116,8 +38,9 @@ class TestKeras3LayoutDiagnostics:
 
 class TestFoldedRequant:
     """Round-5 FOLDED_REQUANT scheme (VERDICT r4 #3): the single-multiplier
-    requant order. Oracle and every kernel twin read quant/v3.FOLDED_REQUANT
-    together, so each knob setting is a self-consistent EXACT scheme; these
+    requant order. The oracle, the device path and QAT read
+    quant/v3.FOLDED_REQUANT together, so each knob setting is a
+    self-consistent EXACT scheme; these
     tests pin the cross-setting identities and the per-setting exactness."""
 
     def _acc_a(self, rng, n=512, c=96):
@@ -126,9 +49,8 @@ class TestFoldedRequant:
         return acc, a
 
     def test_inv_s_one_is_bit_identical_across_knob(self, monkeypatch):
-        """m = a*1.0 == a exactly in IEEE, so the V2 bridge class
-        (a = m, inv_s = 1.0) keeps IDENTICAL integers under either order —
-        the reason flipping the knob cannot move V2 int8 numerics."""
+        """m = a*1.0 == a exactly in IEEE, so a layer with inv_s = 1.0
+        keeps IDENTICAL integers under either order."""
         import mobilenet_tpu.quant.v3 as v3
 
         rng = np.random.default_rng(0)
@@ -159,28 +81,6 @@ class TestFoldedRequant:
             jnp.asarray(acc), jnp.asarray(a), float(inv_s), act))
         np.testing.assert_array_equal(got, want)
 
-    @pytest.mark.parametrize("knob", [True, False])
-    @pytest.mark.parametrize("act", ["relu", "hswish", "linear"])
-    def test_pallas_helper_exact_per_setting(self, monkeypatch, knob, act):
-        """_named_requant_f32 (the in-kernel twin, threaded `fold`) matches
-        the numpy oracle bit-for-bit under both orders — outside a kernel
-        the helper is ordinary traced jnp, same ops Mosaic sees."""
-        import jax.numpy as jnp
-
-        import mobilenet_tpu.quant.v3 as v3
-        from mobilenet_tpu.quant.pallas_block_packed_i8 import \
-            _named_requant_f32
-
-        monkeypatch.setattr(v3, "FOLDED_REQUANT", knob)
-        rng = np.random.default_rng(2)
-        acc, a = self._acc_a(rng)
-        inv_s = np.float32(19.25)
-        want = v3._requant_named_np(acc, a, inv_s, act)
-        got = np.asarray(_named_requant_f32(
-            jnp.asarray(acc, jnp.float32), jnp.asarray(a), float(inv_s),
-            act, knob)).astype(np.int8)
-        np.testing.assert_array_equal(got, want)
-
     def test_qat_taps_track_the_knob(self, monkeypatch):
         """fq_requant_named returns the oracle's integers under BOTH knob
         settings (the QAT fake-quant forward is bit-equal to deployment)."""
@@ -202,39 +102,3 @@ class TestFoldedRequant:
                 np.testing.assert_array_equal(got, want, err_msg=f"{knob} {act}")
 
 
-class TestRoutingEvAtol:
-    """Round-5 extreme-value term in the bf16 routing max-abs gate: the
-    batch-4-calibrated floors alone fail defect-free large-batch runs
-    (V2 batch-256 measured max 0.699 ~ rms*sqrt(2 ln N) = 0.709), while
-    a localized defect must still fail by orders of magnitude."""
-
-    def test_defect_free_noise_passes_at_large_n(self):
-        from mobilenet_tpu.utils import golden
-
-        rng = np.random.default_rng(0)
-        n = 256 * 1000
-        d = rng.normal(0.0, 0.142, size=n).astype(np.float32)
-        atol = golden.routing_bf16_atol(scale=12.3, rms_fr=float(
-            np.sqrt((d ** 2).mean())), n_samples=n)
-        assert np.abs(d).max() <= atol  # the V2 batch-256 class passes
-
-    def test_localized_defect_still_fails(self):
-        from mobilenet_tpu.utils import golden
-
-        rng = np.random.default_rng(1)
-        n = 256 * 1000
-        d = rng.normal(0.0, 0.142, size=n).astype(np.float32)
-        d[123] = 5.0  # one broken element barely moves the rms
-        atol = golden.routing_bf16_atol(scale=12.3, rms_fr=float(
-            np.sqrt((d ** 2).mean())), n_samples=n)
-        assert np.abs(d).max() > 3 * atol
-
-    def test_small_n_floor_unchanged(self):
-        from mobilenet_tpu.utils import golden
-
-        # tiny rms at small N: the absolute/relative floors dominate,
-        # matching the pre-round-5 gate exactly
-        assert golden.routing_bf16_atol(41.5, 1e-4, 4000) == pytest.approx(
-            golden.ROUTING_BF16_REL * 41.5)
-        assert golden.routing_bf16_atol(0.5, 1e-4, 4000) == pytest.approx(
-            golden.ROUTING_BF16_ATOL)

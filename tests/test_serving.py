@@ -164,8 +164,8 @@ def test_batch_bucket_selection_light_load(pipe):
 
 def test_stats_reset_window(pipe):
     """reset_window zeroes per-window load counters but keeps cumulative
-    failure-detection state, so tools/serving_probe.py's per-phase
-    mean_batch_fill is per-phase (not accumulated across load levels)."""
+    failure-detection state, so a load probe's per-phase mean_batch_fill
+    is per-phase (not accumulated across load levels)."""
 
     async def run():
         server = MicroBatchServer(pipe, max_batch=16, max_delay_ms=1.0,

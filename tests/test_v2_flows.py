@@ -1,5 +1,5 @@
 """MobileNet-V2 family parity across the framework's flows: training,
-serving (fp + int8 + DP), sweep/autotune plumbing — everything the V1
+serving (fp + int8 + DP), sweep plumbing — everything the V1
 family gets, the V2 family must mirror (the '--int8 mirrors every flow'
 standard from CLAUDE.md, applied to --model v2)."""
 
@@ -8,7 +8,6 @@ import asyncio
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from mobilenet_tpu.checkpoints.v2 import fold_bn_v2, init_params_v2
 from mobilenet_tpu.models.mobilenet_v2 import V2Config
@@ -134,17 +133,6 @@ def test_v2_multivariant_cross_family():
     assert set(out) == set(cfgs)
     for top in out.values():
         assert len(top) == 5 and all(p >= 0 for _, p in top)
-
-
-def test_v2_autotune_throughput_cpu():
-    """CPU tier: the V2 race runs with the xla-only candidate set and
-    returns a measured number (the sw_emu analog of `cli autotune
-    --model v2`)."""
-    from mobilenet_tpu.runtime.autotune import autotune_backend
-
-    cfg = V2Config(alpha=0.35, resolution=96)
-    best, results = autotune_backend(cfg, batch_size=4, steps=3)
-    assert best in results and results[best] > 0
 
 
 def test_v2_sweep_cli_row(capsys):
